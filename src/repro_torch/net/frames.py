@@ -1,0 +1,189 @@
+"""numpy-side golden frame builders — the 'unmodified Linux client'.
+
+Benchmarks and tests build wire-format Ethernet/IPv4/UDP/TCP frames here
+(host side) and feed them to the stack, proving standard-protocol
+interop without touching the device path.
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+
+def np_checksum16(data: bytes) -> int:
+    """RFC 1071 checksum of a byte string (host-side oracle)."""
+    b = np.frombuffer(data, dtype=np.uint8).astype(np.uint32)
+    if len(b) % 2:
+        b = np.append(b, 0)
+    total = int(((b[0::2] << 8) | b[1::2]).sum())
+    while total >> 16:
+        total = (total & 0xFFFF) + (total >> 16)
+    return (~total) & 0xFFFF
+
+
+def eth_frame(dst_mac: bytes, src_mac: bytes, ethertype: int,
+              payload: bytes, vlan: int = None) -> bytes:
+    if vlan is None:
+        return dst_mac + src_mac + struct.pack("!H", ethertype) + payload
+    return (dst_mac + src_mac + struct.pack("!HH", 0x8100, vlan)
+            + struct.pack("!H", ethertype) + payload)
+
+
+def ipv4_packet(src_ip: int, dst_ip: int, proto: int, payload: bytes,
+                ttl: int = 64, ident: int = 0) -> bytes:
+    total = 20 + len(payload)
+    hdr = struct.pack("!BBHHHBBH", 0x45, 0, total, ident, 0x4000, ttl,
+                      proto, 0) + struct.pack("!II", src_ip, dst_ip)
+    csum = np_checksum16(hdr)
+    hdr = hdr[:10] + struct.pack("!H", csum) + hdr[12:]
+    return hdr + payload
+
+
+def udp_datagram(src_ip: int, dst_ip: int, src_port: int, dst_port: int,
+                 payload: bytes, with_checksum: bool = True) -> bytes:
+    ulen = 8 + len(payload)
+    hdr = struct.pack("!HHHH", src_port, dst_port, ulen, 0)
+    if with_checksum:
+        pseudo = struct.pack("!IIBBH", src_ip, dst_ip, 0, 17, ulen)
+        csum = np_checksum16(pseudo + hdr + payload)
+        csum = csum or 0xFFFF
+        hdr = hdr[:6] + struct.pack("!H", csum)
+    return hdr + payload
+
+
+TCP_FIN, TCP_SYN, TCP_RST, TCP_PSH, TCP_ACK = 0x01, 0x02, 0x04, 0x08, 0x10
+
+
+def tcp_segment(src_ip: int, dst_ip: int, src_port: int, dst_port: int,
+                seq: int, ack: int, flags: int, payload: bytes = b"",
+                window: int = 65535) -> bytes:
+    hdr = struct.pack("!HHIIBBHHH", src_port, dst_port, seq & 0xFFFFFFFF,
+                      ack & 0xFFFFFFFF, 5 << 4, flags, window, 0, 0)
+    tlen = len(hdr) + len(payload)
+    pseudo = struct.pack("!IIBBH", src_ip, dst_ip, 0, 6, tlen)
+    csum = np_checksum16(pseudo + hdr + payload)
+    hdr = hdr[:16] + struct.pack("!H", csum) + hdr[18:]
+    return hdr + payload
+
+
+def udp_rpc_frame(src_ip, dst_ip, src_port, dst_port, payload: bytes,
+                  dst_mac=b"\x02\x00\x00\x00\x00\x01",
+                  src_mac=b"\x02\x00\x00\x00\x00\x02",
+                  vlan=None) -> bytes:
+    dgram = udp_datagram(src_ip, dst_ip, src_port, dst_port, payload)
+    pkt = ipv4_packet(src_ip, dst_ip, 17, dgram)
+    return eth_frame(dst_mac, src_mac, 0x0800, pkt, vlan=vlan)
+
+
+def tcp_eth_frame(src_ip, dst_ip, src_port, dst_port, seq, ack, flags,
+                  payload: bytes = b"", window: int = 65535,
+                  dst_mac=b"\x02\x00\x00\x00\x00\x01",
+                  src_mac=b"\x02\x00\x00\x00\x00\x02") -> bytes:
+    seg = tcp_segment(src_ip, dst_ip, src_port, dst_port, seq, ack, flags,
+                      payload, window)
+    pkt = ipv4_packet(src_ip, dst_ip, 6, seg)
+    return eth_frame(dst_mac, src_mac, 0x0800, pkt)
+
+
+def to_batch(frames, max_len: int = None):
+    """Pack a list of byte strings into (B, L) uint8 + lengths.
+
+    ``max_len=None`` auto-sizes L to the longest frame.  An explicit
+    ``max_len`` smaller than a frame raises a ValueError naming the frame
+    and both sizes (instead of numpy's opaque broadcast error)."""
+    if max_len is None:
+        max_len = max((len(f) for f in frames), default=1)
+    B = len(frames)
+    payload = np.zeros((B, max_len), np.uint8)
+    length = np.zeros((B,), np.int32)
+    for i, f in enumerate(frames):
+        if len(f) > max_len:
+            raise ValueError(
+                f"frame {i} is {len(f)} bytes but max_len={max_len}; "
+                f"pass max_len >= {len(f)} or omit it to auto-size")
+        payload[i, :len(f)] = np.frombuffer(f, np.uint8)
+        length[i] = len(f)
+    return payload, length
+
+
+class FrameArena:
+    """Preallocated multi-batch frame store for the streaming executor:
+    ``payload`` is (n_batches, batch, max_len) uint8, ``length`` is
+    (n_batches, batch) int32, both filled **in place** — feeding
+    `CompiledPipeline.run_stream` never allocates per batch the way a
+    per-call :func:`to_batch` does.  Unused rows stay zero-length (they
+    flow through the compiled chain as dead packets: no route matches an
+    all-zero frame)."""
+
+    def __init__(self, n_batches: int, batch: int, max_len: int):
+        self.n_batches = n_batches
+        self.batch = batch
+        self.max_len = max_len
+        self.payload = np.zeros((n_batches, batch, max_len), np.uint8)
+        self.length = np.zeros((n_batches, batch), np.int32)
+
+    @classmethod
+    def from_buffers(cls, payload: np.ndarray,
+                     length: np.ndarray) -> "FrameArena":
+        """Wrap existing (n_batches, batch, max_len) / (n_batches, batch)
+        buffers as an arena *view* — no copy: filling the view writes the
+        parent buffers in place.  This is how `ShardedFrameArena` hands
+        out per-shard arenas over one contiguous (S, N, B, L) store."""
+        if payload.shape[:2] != length.shape:
+            raise ValueError(
+                f"payload {payload.shape} and length {length.shape} "
+                f"disagree on (n_batches, batch)")
+        arena = cls.__new__(cls)
+        arena.n_batches, arena.batch, arena.max_len = payload.shape
+        arena.payload = payload
+        arena.length = length
+        return arena
+
+    @property
+    def capacity(self) -> int:
+        """Total frame slots."""
+        return self.n_batches * self.batch
+
+    def clear(self):
+        """Zero every slot in place (no reallocation)."""
+        self.payload[:] = 0
+        self.length[:] = 0
+
+    def fill(self, frames) -> int:
+        """Pack a flat list of frames row-major (batch 0 fills first);
+        returns the number of batches holding data.  Stale bytes of
+        reused slots are cleared so a shorter refill never leaks the
+        previous frame's tail."""
+        if len(frames) > self.capacity:
+            raise ValueError(
+                f"{len(frames)} frames exceed the arena's capacity "
+                f"{self.capacity} ({self.n_batches} batches x "
+                f"{self.batch} frames)")
+        self.clear()
+        for i, f in enumerate(frames):
+            if len(f) > self.max_len:
+                raise ValueError(
+                    f"frame {i} is {len(f)} bytes but the arena's "
+                    f"max_len is {self.max_len}")
+            b, k = divmod(i, self.batch)
+            self.payload[b, k, :len(f)] = np.frombuffer(f, np.uint8)
+            self.length[b, k] = len(f)
+        return -(-len(frames) // self.batch) if frames else 0
+
+
+def ip(a: str) -> int:
+    parts = [int(x) for x in a.split(".")]
+    return (parts[0] << 24) | (parts[1] << 16) | (parts[2] << 8) | parts[3]
+
+
+def l2_offset(frame: bytes) -> int:
+    """Where the IPv4 header starts: 0 for an IP-level frame, 14 for
+    Ethernet.  Frames may be either (the TCP stack's TX boundary emits IP
+    frames): an IP-level frame starts with an IPv4 version nibble AND its
+    total-length field covers the whole frame — an Ethernet frame carries
+    14 extra bytes, so a MAC that happens to start with 0x4_ cannot
+    satisfy both."""
+    is_ip = (frame[0] >> 4 == 4
+             and struct.unpack_from("!H", frame, 2)[0] == len(frame))
+    return 0 if is_ip else 14

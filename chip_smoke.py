@@ -7,12 +7,16 @@ Phases, each of which fails the run when it fails:
 
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``);
-  3. hold each kernel against its plain PyTorch version on the card, bit
-     for bit (checksum: B=512, L=4160 and odd widths, lengths 0, odd, L
-     and > L, with and without the pseudo-header term, aligned and not;
-     RS: the (k, p) sweep of the reference's kernel tests and 512
-     requests of 4 KiB), and time both at the main path's shapes;
-  4. the main path: an ``rs_serve`` RPC stack (eth -> ip -> udp/rpc ->
+  3. hold each kernel against its plain PyTorch version on the card —
+     checksum and RS bit for bit (checksum: B=512, L=4160 and odd widths,
+     lengths 0, odd, L and > L, with and without the pseudo-header term,
+     aligned and not; RS: the (k, p) sweep of the reference's kernel tests
+     and 512 requests of 4 KiB), flash attention within 2e-5 (float32) /
+     2e-2 (bf16) with TF32 off (qwen1.5-0.5b's prefill shapes, the
+     reference's sweep, causal=False, a strided view) — and time each at
+     the main paths' shapes, flash beside ``scaled_dot_product_attention``
+     as a yardstick;
+  4. the RS path: an ``rs_serve`` RPC stack (eth -> ip -> udp/rpc ->
      RS(8,2) -> udp -> ip -> eth) on B=512 frames of L=4160: one
      ``rx_tx``, then ``run_stream`` over N=32 batches under
      ``torch.cuda.set_sync_debug_mode("error")``, held equal to 32
@@ -22,11 +26,26 @@ Phases, each of which fails the run when it fails:
   5. the same frames through the port on the CPU (plain versions) at N=2,
      outputs and whole state held equal to the card's;
   6. the app-group path: ``udp_topology`` with the replicated RS app
-     (L=4160), then echo at L=1536, the same way.
+     (L=4160), then echo at L=1536, the same way;
+  7. the LM path at the full width of qwen1.5-0.5b (24 layers, bf16
+     compute, seeded weights): two ``ServeEngine``s prefill 8 prompts of
+     1..2000 tokens through the flash kernel (their caches must be equal),
+     and an ``lm_serve`` + ``rs_serve`` stack streams N=32 batches of B=64
+     mixed LM and RS requests (a duplicate, an unknown session and a
+     truncated request in each; each 8th batch RS only) with no host sync,
+     held equal to 32 sequential ``rx_tx`` calls; the tokens equal the
+     second engine's steps exactly, the error replies, drop reasons and
+     RS parity are right, and an RS-only batch leaves the tile state
+     bit-unchanged; prefill logits through the kernel are held against
+     the plain version; per-request latency, direct against
+     host-mediated;
+  8. the LM path at 2 layers of the full width in float32, on the card
+     and on the CPU: tokens, replies and integer state equal, logits and
+     cache within 1e-3.
 
-Prints the kernels' line ``{"kernels": [...]}`` and the main path's timing
-line, then, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with
-no result line, when CUDA is absent or the repository is not beside it.
+Prints the kernels' line ``{"kernels": [...]}`` and the timing lines, then,
+last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+line, when CUDA is absent or the repository is not beside it.
 """
 from __future__ import annotations
 
@@ -52,6 +71,22 @@ N_CPU = 2        # batches held against the CPU run
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet)
 SEED = 0
+
+# the LM serving path: qwen1.5-0.5b at full width (bf16 compute)
+LM_ARCH = "qwen1.5-0.5b"
+PROMPT_LENS = (1, 129, 777, 1000, 1031, 1536, 1999, 2000)   # one session each
+LM_MAX_SEQ = 2048
+LM_B, LM_L, LM_N = 64, 4160, 32     # frames per batch, width, batches
+RS_ONLY_EVERY = 8                   # each 8th batch carries RS traffic only
+LM_PORT = 9400
+SESSION_BASE = 1000                 # client session ids 1000..1007
+UNKNOWN_SESSION = 4242
+LAT_WARMUP, LAT_REQUESTS = 8, 40    # host path steps every session: 48 fit
+CPU_LM_LAYERS, CPU_LM_BATCHES = 2, RS_ONLY_EVERY   # one RS-only batch
+FLASH_QWEN_S = (1, 129, 1000, 1536, 2000)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LOGIT_TOL = 2e-2                    # of the largest logit (bf16)
+BF16_PEAK = 989e12                  # H100 SXM dense bf16 (data sheet)
 
 IP_C, IP_S = 0x0A000002, 0x0A000001      # 10.0.0.2 -> 10.0.0.1
 
@@ -228,6 +263,640 @@ def bound_ms(nbytes, nops):
                                  "operations")
 
 
+# ---------------------------------------------------------------------------
+# flash attention: the kernel against its plain version
+
+
+def flash_inputs(torch, rng, dev, dtype, B_, S, H, KV, hd):
+    """Seeded q (B, S, KV, G, hd), k, v (B, S, KV, hd) on the card."""
+    def one(shape):
+        a = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+    return (one((B_, S, KV, H // KV, hd)), one((B_, S, KV, hd)),
+            one((B_, S, KV, hd)))
+
+
+def flash_bound(torch, B_, S, H, KV, hd, dtype, causal=True, window=0):
+    """Least time for the work: 4 * hd flops per unmasked (query, key)
+    pair and head, q, k, v and o read or written once."""
+    qp = np.arange(S)[:, None]
+    kp = np.arange(S)[None, :]
+    ok = np.ones((S, S), bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= (qp - kp) < window
+    flops = 4 * hd * int(ok.sum()) * B_ * H
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * B_ * S * hd * (2 * H + 2 * KV)
+    peak = BF16_PEAK if dtype == torch.bfloat16 else CORE_OPS_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def flash_phase(torch, dev, rng):
+    """Hold the kernel against its plain version on the card at qwen's
+    prefill shapes, the reference's sweep, causal=False and a strided view;
+    time the kernel, the plain version and SDPA (a yardstick only) at
+    qwen's shapes in bf16, the LM path's dtype."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_model_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("[flash] TF32 off for float32 products (the plain version is "
+          "full float32); tolerance 2e-5 (float32), 2e-2 (bfloat16), as "
+          "tests/test_kernels.py:101")
+    cases = []
+    for dn in ("float32", "bfloat16"):
+        for S in FLASH_QWEN_S:
+            cases.append(("qwen", dn, 1, S, 16, 16, 64, 0, True))
+        for S, hd, kv, g, w in ((256, 64, 2, 1, 0), (512, 128, 1, 4, 0),
+                                (256, 64, 2, 2, 128), (512, 64, 4, 2, 64)):
+            cases.append(("sweep", dn, 2, S, kv * g, kv, hd, w, True))
+        cases.append(("bidirectional", dn, 2, 300, 4, 2, 64, 0, False))
+    errs = {}
+    for what, dn, B_, S, H, KV, hd, w, causal in cases:
+        dt = getattr(torch, dn)
+        q, k, v = flash_inputs(torch, rng, dev, dt, B_, S, H, KV, hd)
+        got = flash_ops.flash_attention(q, k, v, causal=causal, window=w)
+        want = attention_model_ref(q, k, v, causal=causal, window=w)
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= FLASH_TOL[dn], f"flash kernel != plain by {err} at "
+              f"{what} {dn} B={B_} S={S} H={H} KV={KV} hd={hd} window={w} "
+              f"causal={causal}")
+        errs[(what, dn, S, H, KV, hd, w, causal)] = err
+    wide = torch.from_numpy(rng.standard_normal(
+        (1, 333, 4, 2, 128)).astype(np.float32)).to(dev)
+    kv_ = torch.from_numpy(rng.standard_normal(
+        (1, 333, 2, 4, 64)).astype(np.float32)).to(dev)
+    q, k, v = wide[..., 64:], kv_[:, :, 0], kv_[:, :, 1]
+    err = (flash_ops.flash_attention(q, k, v, window=100)
+           - attention_model_ref(q, k, v, window=100)).abs().max().item()
+    check(err <= FLASH_TOL["float32"], f"flash kernel != plain on a "
+          f"strided model-layout view ({err})")
+    torch.cuda.synchronize()
+    print(f"[flash] {len(cases) + 1} cases within tolerance of the plain "
+          f"version; max error float32 "
+          f"{max(e for c, e in errs.items() if c[1] == 'float32'):.3g}, "
+          f"bfloat16 "
+          f"{max(e for c, e in errs.items() if c[1] == 'bfloat16'):.3g}")
+
+    sizes = []
+    F_ = torch.nn.functional
+    for S in FLASH_QWEN_S:
+        dt = torch.bfloat16
+        q, k, v = flash_inputs(torch, rng, dev, dt, 1, S, 16, 16, 64)
+        call = lambda: flash_ops.flash_attention(q, k, v)          # noqa
+        plain = lambda: attention_model_ref(q, k, v)               # noqa
+        qh, kh, vh = (t.reshape(1, S, 16, 64).transpose(1, 2)
+                      for t in (q, k, v))
+        lib = lambda: F_.scaled_dot_product_attention(             # noqa
+            qh, kh, vh, is_causal=True)
+        err = (call().float() - plain().float()).abs().max().item()
+        lib_err = (call().float() - lib().transpose(1, 2).reshape(
+            1, S, 16, 1, 64).float()).abs().max().item()
+        ms, _, _ = device_ms(torch, call, iters=20, only="flash")
+        p_ms, p_kernels, _ = device_ms(torch, plain, iters=5)
+        l_ms, _, _ = device_ms(torch, lib, iters=20)
+        b_ms, b_by = flash_bound(torch, 1, S, 16, 16, 64, dt)
+        sizes.append({"S": S, "shape": f"q (1, {S}, 16, 1, 64) bf16, "
+                      f"causal", "max_abs_err": err, "sdpa_max_abs_err":
+                      lib_err, "ms": ms, "plain_ms": p_ms,
+                      "plain_kernels": p_kernels, "library_ms": l_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "call_ms": time_cuda(torch, call, iters=20)})
+        print(f"[flash] S={S} bf16: kernel {ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms, SDPA {l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+              f"err {err:.3g}")
+    return {"cases": len(cases) + 1, "errs": errs, "sizes": sizes}
+
+
+# ---------------------------------------------------------------------------
+# LM serving: frames, reply checks, the path
+
+
+def make_lm_batches(F, rpc, lm_server, rng, n_batches, batch, width,
+                    sessions):
+    """n_batches x batch frames.  Every batch but each 8th holds one
+    MSG_LM_GENERATE for each session, a duplicate of one of them, one for
+    an unknown session and a truncated one; RS requests of 4 KiB fill the
+    rest (each 8th batch is RS only).  Rows are shuffled.  Returns
+    (payload (n, B, L), length (n, B), rows [(kind, session)] per batch,
+    blocks {(b, i): 4 KiB})."""
+    payload = np.zeros((n_batches, batch, width), np.uint8)
+    length = np.zeros((n_batches, batch), np.int32)
+    kinds, blocks = [], {}
+    for b in range(n_batches):
+        rows = []
+        if b % RS_ONLY_EVERY != RS_ONLY_EVERY - 1:
+            rows += [("lm", s) for s in sessions]
+            rows += [("lm_dup", sessions[b % len(sessions)]),
+                     ("lm_unknown", UNKNOWN_SESSION),
+                     ("lm_short", sessions[0])]
+        rows += [("rs", None)] * (batch - len(rows))
+        rows = [rows[j] for j in rng.permutation(batch)]
+        for i, (kind, sess) in enumerate(rows):
+            rid = b * batch + i
+            if kind == "rs":
+                blk = rng.integers(0, 256, 4096, dtype="uint8").tobytes()
+                blocks[(b, i)] = blk
+                body = rpc.np_frame(rpc.MSG_RS_ENCODE, rid, blk)
+            else:
+                req = lm_server.encode_request(sess, 1, [])
+                if kind == "lm_short":
+                    req = req[:5]
+                body = rpc.np_frame(rpc.MSG_LM_GENERATE, rid, req)
+            fr = F.udp_rpc_frame(IP_C, IP_S, 5000 + i % 64, LM_PORT, body)
+            payload[b, i, :len(fr)] = memoryview(fr)
+            length[b, i] = len(fr)
+        kinds.append(rows)
+    return payload, length, kinds, blocks
+
+
+def reply_body(q, ql, what):
+    """The RPC body of one reply frame, after checking its Ethernet type,
+    IPv4 and UDP checksums and RPC magic with numpy."""
+    ql = int(ql)
+    check(ql >= 51 and q[12] == 0x08 and q[13] == 0, f"{what}: not IPv4")
+    check(np_csum_ok(q[None, 14:34])[0], f"{what}: IP checksum")
+    ulen = ql - 34
+    pseudo = ((IP_S >> 16) + (IP_S & 0xFFFF) + (IP_C >> 16)
+              + (IP_C & 0xFFFF) + 17 + ulen)
+    check(np_csum_ok(q[None, 34:34 + ulen], np.uint64(pseudo))[0],
+          f"{what}: UDP checksum")
+    check(q[42] == 0xBE and q[43] == 0xE5, f"{what}: RPC magic")
+    plen = (int(q[49]) << 8) | int(q[50])
+    return bytes(q[51:51 + plen])
+
+
+def tree_equal(torch, convert, a, b, what):
+    """Two nests of tensors equal leaf for leaf (dtype and bits)."""
+    fa, fb = convert.flatten(a), convert.flatten(b)
+    check(fa.keys() == fb.keys(), f"{what}: keys {fa.keys() ^ fb.keys()}")
+    for k in fa:
+        check(fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]),
+              f"{what}: {k} differs")
+
+
+class sync_errors:
+    """torch.cuda.set_sync_debug_mode("error") on the card (a host sync
+    raises), nothing on the CPU."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.on = torch, dev.type == "cuda"
+
+    def __enter__(self):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode("default")
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm_path(torch, dev, cfg, params, prompt_lens, max_seq, batch, width,
+            n_batches, seed):
+    """The LM serving path: two engines prefill the same prompts (through
+    the flash kernel on the card), the tile state adopts the first, and an
+    ``lm_serve`` + ``rs_serve`` RPC stack streams ``n_batches`` batches of
+    mixed LM and RS requests with no host sync, held equal to sequential
+    ``rx_tx`` calls.  Returns what the checks and timings need."""
+    from repro_torch import convert
+    from repro_torch.apps import lm_server
+    from repro_torch.kernels.checksum import ops as csum_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rs_encode import gf
+    from repro_torch.kernels.rs_encode import ops as rs_ops
+    from repro_torch.kernels.rs_encode.ref import rs_encode_np
+    from repro_torch.models import model as TM
+    from repro_torch.net import frames as F, rpc
+    from repro_torch.net.stack import UdpStack, rpc_serve_topology
+    from repro_torch.obs import reasons as R
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in prompt_lens]
+    sessions = [SESSION_BASE + i for i in range(len(prompts))]
+    M = len(prompts)
+    frames_p, frames_l, kinds, blocks = make_lm_batches(
+        F, rpc, lm_server, rng, n_batches, batch, width, sessions)
+    arena_p = torch.from_numpy(frames_p).to(dev)
+    arena_l = torch.from_numpy(frames_l).to(dev)
+    lm = lm_server.make_tile(cfg, params, max_sessions=M, max_seq=max_seq)
+    stack = UdpStack([lm], IP_S, device=dev, topo=rpc_serve_topology(
+        [("lm", "lm_serve", rpc.MSG_LM_GENERATE),
+         ("rs", "rs_serve", rpc.MSG_RS_ENCODE)]))
+    order = stack.pipeline.order
+    sync(torch, dev)
+
+    # ---- the counted run: prefill twice, stream, sequential rx_tx --------
+    csum_ops.checksum16.launches = 0
+    rs_ops.encode_blocks.launches = 0
+    flash_ops.flash_attention.launches = 0
+    engines, smaps = [], []
+    for _ in range(2):
+        eng = ServeEngine(cfg, params, max_sessions=M, max_seq=max_seq)
+        smaps.append({s: eng.new_session(pr)
+                      for s, pr in zip(sessions, prompts)})
+        engines.append(eng)
+    eng_a, eng_b = engines
+    tree_equal(torch, convert, eng_a.cache, eng_b.cache,
+               "two engines' prefill caches of the same prompts")
+    check(torch.equal(eng_a.last_tok, eng_b.last_tok)
+          and torch.equal(eng_a.pos, eng_b.pos),
+          "two engines' first tokens or positions")
+    st_stream = stack.init_state()
+    st_stream["apps"]["lm"] = lm_server.adopt_engine(
+        st_stream["apps"]["lm"], eng_a, smaps[0])
+    st_seq = stack.init_state()
+    st_seq["apps"]["lm"] = lm_server.adopt_engine(
+        st_seq["apps"]["lm"], eng_a, smaps[0])
+    rs_only = [b for b in range(n_batches)
+               if all(k == "rs" for k, _ in kinds[b])]
+    snap_b = rs_only[0]
+    sync(torch, dev)
+    with sync_errors(torch, dev):
+        st_stream, outs = stack.run_stream(st_stream, arena_p, arena_l)
+        seq, snaps = [], {}
+        for b in range(n_batches):
+            if b == snap_b:
+                snaps["before"] = {k: t.clone() for k, t in convert.flatten(
+                    st_seq["apps"]["lm"]).items()}
+            st_seq, q, ql, al, inf = stack.rx_tx(st_seq, arena_p[b],
+                                                 arena_l[b])
+            seq.append((q, ql, al, inf["lm"], inf["rs"],
+                        st_seq["apps"]["lm"]["last_tok"]))
+            if b == snap_b:
+                snaps["after"] = {k: t.clone() for k, t in convert.flatten(
+                    st_seq["apps"]["lm"]).items()}
+    sync(torch, dev)
+    launches = {"flash_attention": flash_ops.flash_attention.launches,
+                "checksum16": csum_ops.checksum16.launches,
+                "rs_encode": rs_ops.encode_blocks.launches}
+    # on the card: each prefill runs the kernel once a layer; each batch,
+    # streamed and sequential, four checksums and one RS encode
+    on = int(dev.type == "cuda")
+    check(launches == {"flash_attention": on * 2 * M * cfg.n_layers,
+                       "checksum16": on * 8 * n_batches,
+                       "rs_encode": on * 2 * n_batches},
+          f"launches on the LM path: {launches}")
+
+    # ---- stream == sequential; the RS-only batch left the cache alone ----
+    for b in range(n_batches):
+        q, ql, al, i_lm, i_rs, _ = seq[b]
+        check(torch.equal(q, outs["tx_payload"][b])
+              and torch.equal(ql, outs["tx_len"][b])
+              and torch.equal(al, outs["alive"][b])
+              and torch.equal(i_lm, outs["info"]["lm"][b])
+              and torch.equal(i_rs, outs["info"]["rs"][b]),
+              f"LM stream batch {b} != sequential rx_tx")
+    tree_equal(torch, convert, st_stream, st_seq,
+               "LM stream state vs sequential rx_tx")
+    tree_equal(torch, convert, snaps["before"], snaps["after"],
+               f"tile state across the RS-only batch {snap_b}")
+
+    # ---- replies --------------------------------------------------------
+    tx = outs["tx_payload"].cpu().numpy()
+    txl = outs["tx_len"].cpu().numpy()
+    alive = outs["alive"].cpu().numpy()
+    i_lm = outs["info"]["lm"].cpu().numpy()
+    i_rs = outs["info"]["rs"].cpu().numpy()
+    check(alive.all(), "a frame of the LM stream was dropped")
+    tokens = {s: [] for s in sessions}
+    rs_rows = []
+    n_lm = 0
+    for b in range(n_batches):
+        by_session = {}
+        lm_batch = False
+        for i, (kind, sess) in enumerate(kinds[b]):
+            check(bool(i_lm[b, i]) == (kind != "rs")
+                  and bool(i_rs[b, i]) == (kind == "rs"),
+                  f"batch {b} row {i}: dispatched to the wrong tile")
+            if kind == "rs":
+                rs_rows.append((b, i))
+                continue
+            body = reply_body(tx[b, i], txl[b, i], f"LM reply {(b, i)}")
+            if kind == "lm":
+                lm_batch = True
+                sid, toks, ok = lm_server.decode_reply(body)
+                check(ok and sid == sess and len(toks) == 1
+                      and lm_server.reply_error(body) is None,
+                      f"LM reply {(b, i)}: {body.hex()}")
+                tokens[sess].append(toks[0])
+                by_session[sess] = body
+        for i, (kind, sess) in enumerate(kinds[b]):
+            if kind in ("rs", "lm"):
+                continue
+            body = reply_body(tx[b, i], txl[b, i], f"LM reply {(b, i)}")
+            want = {"lm_dup": None, "lm_unknown": lm_server.ERR_NO_SESSION,
+                    "lm_short": lm_server.ERR_BAD_REQUEST}[kind]
+            if kind == "lm_dup":
+                check(body == by_session[sess], f"duplicate {(b, i)} was "
+                      f"not coalesced")
+            else:
+                check(lm_server.reply_error(body) == want,
+                      f"{kind} {(b, i)}: reply {body.hex()}")
+        n_lm += lm_batch
+    check_replies(gf, rs_encode_np, tx, txl, rs_rows, blocks, 1024,
+                  "rs_serve beside lm_serve")
+    # the engine's tokens: the replies carry their low 16 bits (the wire's
+    # u16), the tile's state the whole id after every LM batch
+    full = [seq[b][5].cpu().numpy() for b in range(n_batches)
+            if b not in rs_only]
+    want_toks = {s: [] for s in sessions}
+    for k in range(n_lm):
+        row = eng_b.step()
+        check(np.array_equal(full[k], row), f"tile last_tok after LM batch "
+              f"{k} != ServeEngine.step: {full[k]} vs {row}")
+        for s in sessions:
+            want_toks[s].append(int(row[smaps[1][s]]) & 0xFFFF)
+    bad = [(s, k, tokens[s][k], want_toks[s][k]) for s in sessions
+           for k in range(n_lm) if tokens[s][k] != want_toks[s][k]]
+    check(not bad, f"LM stream tokens != ServeEngine.step tokens at "
+          f"{len(bad)} of {n_lm * M} (session, step, stream, engine): "
+          f"{bad[:8]}")
+    wide = sum(int((f >= 1 << 16).sum()) for f in full)
+    st = st_stream["apps"]["lm"]
+    check(st["pos"].cpu().tolist() == [n + n_lm for n in prompt_lens],
+          "session positions after the stream")
+    check(int(st["served"]) == n_lm * (M + 1), "served counter")
+    drops = st_stream["telemetry"]["drops"].cpu().numpy()
+    li = order.index("lm")
+    check(drops[li, R.APP_NO_SESSION] == n_lm
+          and drops[li, R.APP_BAD_REQ] == n_lm
+          and drops[li].sum() == 2 * n_lm, f"lm drop row {drops[li]}")
+    print(f"[lm] {n_batches} batches of {batch} (L={width}) streamed with "
+          f"no host sync == sequential rx_tx; {sum(map(len, tokens.values()))}"
+          f" tokens == ServeEngine.step over {n_lm} steps ({wide} above "
+          f"0xFFFF: replies carry the low 16 bits, the tile state the id); "
+          f"{len(rs_rows)} RS replies checked; error replies and drop "
+          f"reasons right; tile state unchanged across RS-only batch "
+          f"{snap_b}; launches {launches}")
+    return {"stack": stack, "eng_a": eng_a,
+            "smap": smaps[0], "sessions": sessions, "prompts": prompts,
+            "arena": (arena_p, arena_l), "kinds": kinds, "n_lm": n_lm,
+            "launches": launches, "tokens": tokens, "outs": outs,
+            "tokens_above_u16": wide,
+            "state": st_stream}
+
+
+def prefill_logits_check(torch, dev, cfg, params, prompts):
+    """Last-token prefill logits through the kernel against the plain
+    version, on the card.  Tolerance: 2e-2 of the largest logit — the
+    bf16 tolerance of the reference's kernel test taken on the logits'
+    scale, since the two attentions differ by float32 rounding that each
+    layer's bf16 output may round to a neighbouring value; greedy tokens
+    must agree wherever the top-2 margin exceeds twice that."""
+    import types
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_model_ref
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as TM
+    out = []
+    for pr in prompts:
+        tok = torch.from_numpy(pr[None]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, _ = TM.prefill(cfg, params, {"tokens": tok})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        TL.flash_ops = types.SimpleNamespace(
+            flash_attention=attention_model_ref)
+        try:
+            lp, _ = TM.prefill(cfg, params, {"tokens": tok})
+        finally:
+            TL.flash_ops = flash_ops
+        lk, lp = lk.float()[0], lp.float()[0]
+        check(bool(torch.isfinite(lk).all()), f"non-finite logits at "
+              f"prompt length {len(pr)}")
+        scale = lp[:cfg.vocab].abs().max().item()
+        err = (lk - lp)[:cfg.vocab].abs().max().item()
+        tol = LOGIT_TOL * scale
+        check(err <= tol, f"prefill logits kernel vs plain: {err} > {tol} "
+              f"at prompt length {len(pr)}")
+        top2 = lp[:cfg.vocab].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        same = int(lk[:cfg.vocab].argmax()) == int(lp[:cfg.vocab].argmax())
+        check(same or margin <= 2 * tol, f"greedy token differs with a "
+              f"margin of {margin} at prompt length {len(pr)}")
+        out.append({"S": len(pr), "prefill_ms": ms, "max_abs_err": err,
+                    "scale": scale,
+                    "tol": tol, "top2_margin": margin,
+                    "greedy_equal": same})
+    print(f"[lm] prefill logits, kernel vs plain: max error "
+          f"{max(o['max_abs_err'] for o in out):.4g} (tolerance "
+          f"{LOGIT_TOL} x max |logit|); greedy equal "
+          f"{sum(o['greedy_equal'] for o in out)}/{len(out)}")
+    return out
+
+
+def lm_profile(torch, cfg, params, lm):
+    """Where a step's time goes: one decode step of the 8 sessions (on a
+    copy of the first engine's cache), host clock and device time with
+    its largest events; and each prefill's device time with the flash
+    kernel's share."""
+    from repro_torch.models import model as TM
+    from repro_torch.tree import tree_map
+    eng = lm["eng_a"]
+    cache = tree_map(torch.clone, eng.cache)
+
+    def step():
+        TM.decode_step(cfg, params, cache, eng.last_tok, eng.pos)
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    d_ms, d_events, d_top = device_ms(torch, step, iters=3)
+    prefill = {}
+    for pr in lm["prompts"]:
+        tok = torch.from_numpy(pr[None]).to(eng.device)
+        fn = lambda: TM.prefill(cfg, params, {"tokens": tok})     # noqa
+        p_ms, p_events, _ = device_ms(torch, fn, iters=1)
+        f_ms, _, _ = device_ms(torch, fn, iters=1, only="flash")
+        prefill[len(pr)] = {"device_ms": p_ms, "flash_ms": f_ms,
+                            "device_events": p_events}
+    out = {"decode_wall_ms": float(np.median(walls)),
+           "decode_wall_samples": walls, "decode_device_ms": d_ms,
+           "decode_device_events": d_events, "decode_top": d_top,
+           "prefill_device": prefill}
+    print(f"[lm] decode step of {eng.M} sessions: {out['decode_wall_ms']:.2f}"
+          f" ms wall, {d_ms:.2f} ms device from {d_events:.0f} events; "
+          f"prefill at {len(lm['prompts'][-1])} tokens: "
+          f"{prefill[len(lm['prompts'][-1])]['device_ms']:.2f} ms device, "
+          f"flash {prefill[len(lm['prompts'][-1])]['flash_ms']:.2f} ms")
+    return out
+
+
+def lm_timing(torch, dev, lm):
+    """Streamed ms per batch (host clock around synchronized work) and the
+    card's busy share over one stream (profiler device time / wall)."""
+    from repro_torch.apps import lm_server
+    stack, eng_a = lm["stack"], lm["eng_a"]
+    arena_p, arena_l = lm["arena"]
+    n = arena_p.shape[0]
+
+    def fresh():
+        st = stack.init_state()
+        st["apps"]["lm"] = lm_server.adopt_engine(st["apps"]["lm"], eng_a,
+                                                  lm["smap"])
+        torch.cuda.synchronize()
+        return st
+
+    samples = []
+    for _ in range(2):
+        st = fresh()
+        t0 = time.perf_counter()
+        stack.run_stream(st, arena_p, arena_l)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    st = fresh()
+    dev_ms, dev_kernels, top = device_ms(
+        torch, lambda: stack.run_stream(st, arena_p, arena_l), iters=1)
+    stream_ms = float(np.median(samples))
+    return {"stream_ms_samples": samples, "stream_ms_total": stream_ms,
+            "stream_ms_per_batch": stream_ms / n, "device_ms": dev_ms,
+            "device_kernels": dev_kernels, "busy_share": dev_ms / stream_ms,
+            "top": top}
+
+
+def lm_latency(torch, dev, lm):
+    """Per-request latency, direct (one-frame ``run_stream`` windows: parse,
+    one decode step on the card, reply framed, all without the host)
+    against host-mediated (the card parses, the host syncs the body out,
+    ``LmServerApp.handle`` drives the engine, the host frames the reply),
+    round robin over the same sessions — the paper's comparison."""
+    from repro_torch.apps import lm_server
+    from repro_torch.net import eth, frames as F, ipv4, rpc, udp
+    stack, eng_a, smap = lm["stack"], lm["eng_a"], lm["smap"]
+    sessions = lm["sessions"]
+    n = LAT_WARMUP + LAT_REQUESTS
+    frames = [F.udp_rpc_frame(IP_C, IP_S, 5000 + i % 64, LM_PORT,
+                              rpc.np_frame(rpc.MSG_LM_GENERATE, i,
+                                           lm_server.encode_request(
+                                               sessions[i % len(sessions)],
+                                               1, [])))
+              for i in range(n)]
+    width = max(len(f) for f in frames) + 8
+    windows = []
+    for f in frames:
+        p, l = F.to_batch([f], width)
+        windows.append((torch.from_numpy(p)[None].to(dev),
+                        torch.from_numpy(l)[None].to(dev)))
+    st = stack.init_state()
+    st["apps"]["lm"] = lm_server.adopt_engine(st["apps"]["lm"], eng_a, smap)
+    sync(torch, dev)
+    lat_d, direct_tok = [], []
+    for i, (p, l) in enumerate(windows):
+        t0 = time.perf_counter()
+        st, outs = stack.run_stream(st, p, l)
+        sync(torch, dev)
+        dt = (time.perf_counter() - t0) * 1e6
+        body = reply_body(outs["tx_payload"][0, 0].cpu().numpy(),
+                          outs["tx_len"][0, 0].item(), f"direct {i}")
+        sid, toks, ok = lm_server.decode_reply(body)
+        check(ok and len(toks) == 1, f"direct request {i} not served")
+        direct_tok.append(toks[0])
+        if i >= LAT_WARMUP:
+            lat_d.append(dt)
+
+    def parse_rx(payload, length):
+        pp, ll, m = eth.parse(payload, length)
+        pp, ll, m2, ok1 = ipv4.parse(pp, ll)
+        m.update(m2)
+        pp, ll, m3, ok2 = udp.parse(pp, ll, m)
+        body, blen, _, ok3 = rpc.parse(pp, ll)
+        return body, blen, ok1 & ok2 & ok3
+
+    app = lm_server.LmServerApp(eng_a)
+    for s, sid in smap.items():
+        app.session_map[s] = sid
+    lat_h = []
+    for i, (p, l) in enumerate(windows):
+        t0 = time.perf_counter()
+        body, blen, ok = parse_rx(p[0], l[0])
+        req = bytes(body[0, :int(blen[0])].cpu().numpy().tobytes())
+        reply = app.handle(req)
+        F.udp_rpc_frame(IP_S, IP_C, LM_PORT, 5000,
+                        rpc.np_frame(rpc.MSG_LM_GENERATE, i, reply))
+        dt = (time.perf_counter() - t0) * 1e6
+        check(bool(ok[0]) and lm_server.reply_error(reply) is None,
+              f"host-mediated request {i} failed")
+        if i >= LAT_WARMUP:
+            lat_h.append(dt)
+
+    def pct(x):
+        p50, p99 = np.percentile(x, [50.0, 99.0])
+        return {"n": len(x), "p50_us": float(p50), "p99_us": float(p99),
+                "mean_us": float(np.mean(x)), "max_us": float(np.max(x))}
+    d, h = pct(lat_d), pct(lat_h)
+    print(f"[lm] per-request latency over {LAT_REQUESTS} requests: direct "
+          f"p50 {d['p50_us']:.0f} us p99 {d['p99_us']:.0f} us; "
+          f"host-mediated p50 {h['p50_us']:.0f} us p99 {h['p99_us']:.0f} us")
+    return {"direct": d, "host": h,
+            "speedup_p50": h["p50_us"] / d["p50_us"],
+            "speedup_p99": h["p99_us"] / d["p99_us"]}
+
+
+def lm_cpu_check(torch, dev, cfg, seed):
+    """The LM path at CPU_LM_LAYERS layers of the full width in float32,
+    on the card and on the CPU (plain versions): prefill logits within
+    1e-3 (float32 everywhere, TF32 off, sums in another order; the kernel
+    alone is held to 2e-5) and the streamed replies, masks and integer
+    tile state equal, the cache within 1e-3."""
+    import copy
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.models import model as TM
+    cfg2 = dataclasses.replace(cfg, n_layers=CPU_LM_LAYERS,
+                               compute_dtype="float32")
+    cpu = torch.device("cpu")
+    params_g = TM.init_params(cfg2, seed=seed, device=dev)
+    params_c = copy.deepcopy(params_g).to(cpu)
+    g, c = (lm_path(torch, d, cfg2, p, PROMPT_LENS, LM_MAX_SEQ, LM_B, LM_L,
+                    CPU_LM_BATCHES, seed)
+            for d, p in ((dev, params_g), (cpu, params_c)))
+    check(g["tokens"] == c["tokens"], "CPU tokens != card tokens")
+    for k in ("tx_payload", "tx_len", "alive"):
+        check(torch.equal(g["outs"][k].cpu(), c["outs"][k]),
+              f"CPU LM stream {k} != card")
+    fg = convert.flatten(convert.state_to_numpy(g["state"]))
+    fc = convert.flatten(convert.state_to_numpy(c["state"]))
+    check(fg.keys() == fc.keys(), "CPU state keys != card")
+    cache_err = 0.0
+    for k in fg:
+        if "/cache/" in k:
+            cache_err = max(cache_err, float(np.abs(fg[k] - fc[k]).max()))
+        else:
+            check(np.array_equal(fg[k], fc[k]), f"CPU state {k} != card")
+    check(cache_err <= 1e-3, f"CPU cache differs from the card's by "
+          f"{cache_err}")
+    logit_err = 0.0
+    for pr in g["prompts"]:
+        lg, _ = TM.prefill(cfg2, params_g,
+                           {"tokens": torch.from_numpy(pr[None]).to(dev)})
+        lc, _ = TM.prefill(cfg2, params_c,
+                           {"tokens": torch.from_numpy(pr[None])})
+        logit_err = max(logit_err, (lg.cpu() - lc).abs().max().item())
+    check(logit_err <= 1e-3, f"CPU prefill logits differ by {logit_err}")
+    print(f"[cpu] LM path at {CPU_LM_LAYERS} layers of the full width, "
+          f"float32: CPU tokens, replies and tile state == card; cache "
+          f"error {cache_err:.3g}, prefill logit error {logit_err:.3g}")
+    return {"layers": CPU_LM_LAYERS, "batches": CPU_LM_BATCHES,
+            "cache_max_abs_err": cache_err,
+            "prefill_logit_max_abs_err": logit_err}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -317,6 +986,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[kernels] rs_encode: {n_cases + 1} cases bit-identical to the "
           f"plain version and to rs_encode_np")
+
+    flash = flash_phase(torch, dev, rng)
 
     # main-path shapes: the four checksum calls of one RS batch, as an
     # rx_tx on the card makes them, and the RS kernel's (512, 4096) view of
@@ -608,7 +1279,40 @@ def main() -> int:
               f"no host sync, replies checked, CPU run equal; launches "
               f"{app_launches[name]}")
 
-    # ---- 7. results ---------------------------------------------------------
+    # ---- 7. the LM serving path at full width ------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    cfg = get_config(LM_ARCH)
+    t0 = time.time()
+    params = TM.init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    lm = lm_path(torch, dev, cfg, params, PROMPT_LENS, LM_MAX_SEQ, LM_B, LM_L,
+                 LM_N, SEED)
+    logits = prefill_logits_check(torch, dev, cfg, params, lm["prompts"])
+    prof = lm_profile(torch, cfg, params, lm)
+    timing = lm_timing(torch, dev, lm)
+    latency = lm_latency(torch, dev, lm)
+    print(f"[lm] {LM_N} batches streamed: {timing['stream_ms_per_batch']:.2f}"
+          f" ms per batch, card busy {100 * timing['busy_share']:.1f} %")
+    lm_line = {"lm_path": {
+        "card": card, "arch": LM_ARCH, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab, "compute": "bfloat16",
+        "sessions": len(PROMPT_LENS), "max_seq": LM_MAX_SEQ,
+        "prompt_lens": list(PROMPT_LENS), "B": LM_B, "L": LM_L, "N": LM_N,
+        "lm_batches": lm["n_lm"], "launches": lm["launches"],
+        "tokens_above_u16": lm["tokens_above_u16"],
+        "params_init_s": init_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "prefill_ms": {o["S"]: o["prefill_ms"] for o in logits},
+        "prefill_logits": logits, "profile": prof, "stream": timing,
+        "latency": latency}}
+    del lm, params
+
+    # ---- 8. the LM path on the CPU ------------------------------------------
+    cpu_lm = lm_cpu_check(torch, dev, cfg, SEED)
+
+    # ---- 9. results ---------------------------------------------------------
     kernels = [
         {"name": "checksum16", "route": "cuda",
          "source": "src/repro_torch/csrc/checksum.cu",
@@ -636,8 +1340,27 @@ def main() -> int:
          "library_ms": None, "call_ms": call_r, "plain_call_ms": call_plain_r,
          "shape": f"rs_serve: ({B}, 4096) of ({B}, {L}) -> ({B}, 1024)",
          "launches_per_batch": launches["rs_encode"] // batches_run},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+         "launches": lm_line["lm_path"]["launches"]["flash_attention"],
+         "max_abs_err": max(z["max_abs_err"] for z in flash["sizes"]),
+         **{k: flash["sizes"][-1][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "call_ms")},
+         "library": "torch.nn.functional.scaled_dot_product_attention",
+         "shape": flash["sizes"][-1]["shape"],
+         "sizes": flash["sizes"], "cases_checked": flash["cases"],
+         "max_abs_err_all_cases": {
+             dn: max(e for c, e in flash["errs"].items() if c[1] == dn)
+             for dn in ("float32", "bfloat16")},
+         "launches_per_prefill": cfg.n_layers},
     ]
+    for kd in kernels[:2]:
+        kd["lm_path_launches"] = lm_line["lm_path"]["launches"][kd["name"]]
     print(json.dumps(main_line))
+    print(json.dumps(lm_line))
+    print(json.dumps({"lm_cpu_check": cpu_lm}))
     print(json.dumps({"app_group_launches": app_launches,
                       "seconds": time.time() - t_all}))
     print(json.dumps({"kernels": kernels}))

@@ -29,6 +29,8 @@ SIGNATURES = {
     "beehive_checksum16": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
     "beehive_rs_encode": [_P, _I64, _I64, _I64, ctypes.c_int, ctypes.c_int,
                           _P, _P, _I64, _P],
+    "beehive_flash_attention": [_P, _P, _P, _P, *[_I64] * 19, ctypes.c_int,
+                                _I64, ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

@@ -12,18 +12,19 @@ maintained by the executor), ``body``/``blen`` (RPC body for apps),
 ``out_body``/``out_blen`` (app-modified reply body).  TX direction:
 ``tx_payload``/``tx_len``/``tx_meta`` and ``tx_csum_offset``.
 
-Ported here: eth/ip/udp RX and TX and the ``rs_serve`` app tile.  The TCP,
-NAT, IP-in-IP, management, observability and ``lm_serve`` tiles are not
-ported yet (ROADMAP queue 1); a topology naming one fails to compile.
+Ported here: eth/ip/udp RX and TX and the ``lm_serve`` and ``rs_serve``
+app tiles.  The TCP, NAT, IP-in-IP, management and observability tiles are
+not ported yet (ROADMAP queue 1); a topology naming one fails to compile.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.compiler import register_tile
+from repro_torch.core.compiler import CompileError, register_tile
 from repro_torch.net import eth, ipv4, rpc, udp
 from repro_torch.obs import reasons
 from repro_torch.transport import rate as rate_mod
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # RX protocol tiles
@@ -119,6 +120,53 @@ def eth_tx(state, carrier, pred, ctx):
 
 # ---------------------------------------------------------------------------
 # application tiles (direct-attached accelerator compute, paper §5/§6)
+#
+# These are topology-declared like any protocol tile: the serving topology
+# routes udp_rx -> app on `rpc_msg` (the RPC frame's msg_type), so the
+# request *kind* picks the tile.  Inside `run_stream` the ingest ->
+# compute -> reply loop never synchronizes with the host.
+
+
+def _lm_init(ctx):
+    b = ctx.binding
+    if b is None:
+        raise CompileError(f"lm_serve tile {ctx.name!r} has no LmTileDecl "
+                           f"binding")
+    # fresh tensors per init_state: the tile updates its cache in place,
+    # and that must never reach the binding's template
+    return {"apps": {ctx.name: tree_map(torch.clone, b.state)}}
+
+
+@register_tile("lm_serve", init=_lm_init)
+def lm_serve(state, carrier, pred, ctx):
+    """Direct-attached LM decode: session/KV state lives in the stack
+    state (carried by run_stream); each arriving MSG_LM_GENERATE triggers
+    one decode step on the device for its session, and the reply body
+    (the generated token) is written in the same batch."""
+    from repro_torch.apps import lm_server
+    apps = dict(state["apps"])
+    st, nb, nl = lm_server.tile_process(ctx.binding, apps[ctx.name],
+                                        carrier["body"], carrier["blen"],
+                                        pred)
+    apps[ctx.name] = st
+    state = dict(state)
+    state["apps"] = apps
+    # soft-drop attribution from the reply's error sentinel (the request
+    # was answered with an ERR_*, not served)
+    from repro_torch.net import bytesops as BO
+    n_out = BO.be16(nb, 4)
+    carrier["drop_reason"] = torch.where(
+        pred & (n_out == lm_server.ERR_BAD_REQUEST), reasons.APP_BAD_REQ,
+        torch.where(pred & (n_out == lm_server.ERR_NO_SESSION),
+                    reasons.APP_NO_SESSION,
+                    torch.where(pred & (n_out == lm_server.ERR_NO_SLOT),
+                                reasons.APP_NO_SLOT, 0))).to(torch.int32)
+    carrier["out_body"] = torch.where(pred[:, None], nb, carrier["out_body"])
+    carrier["out_blen"] = torch.where(pred, nl, carrier["out_blen"])
+    info = dict(carrier["info"])
+    info[ctx.name] = pred
+    carrier["info"] = info
+    return state, carrier, None
 
 
 def _rs_serve_init(ctx):

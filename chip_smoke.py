@@ -41,7 +41,21 @@ Phases, each of which fails the run when it fails:
      host-mediated;
   8. the LM path at 2 layers of the full width in float32, on the card
      and on the CPU: tokens, replies and integer state equal, logits and
-     cache within 1e-3.
+     cache within 1e-3;
+  9. the Mamba path at the full width and depth of falcon-mamba-7b (64
+     layers, bf16 compute, seeded weights), once the LM phases' memory is
+     freed: the selective-scan kernel held against its plain version
+     within 1e-4 (D=8192, N=16, B and C strided views, S from 1 to 2000,
+     B=2, the carry test; TF32 off) and timed; two ``ServeEngine``s prefill
+     8 prompts of 1..2000 tokens through the kernel (their caches must be
+     equal, 64 launches a prefill) and decode 16 steps of every session
+     with no host sync inside ``decode_step`` (their tokens must be equal);
+     a 2-token prompt is refused as by the reference; prefill logits and
+     state through the kernel are held against the plain version, and the
+     kernel against the plain version on every layer's own inputs; decode
+     and prefill profiles and the serving loop's busy share;
+ 10. the Mamba path at 2 layers of the full width in float32, on the card
+     and on the CPU: tokens equal, logits and state within 1e-3.
 
 Prints the kernels' line ``{"kernels": [...]}`` and the timing lines, then,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -49,6 +63,7 @@ line, when CUDA is absent or the repository is not beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import struct
@@ -87,6 +102,22 @@ FLASH_QWEN_S = (1, 129, 1000, 1536, 2000)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_TOL = 2e-2                    # of the largest logit (bf16)
 BF16_PEAK = 989e12                  # H100 SXM dense bf16 (data sheet)
+
+# the Mamba serving path: falcon-mamba-7b at full width and depth (bf16
+# compute); prompts of 2 tokens are refused by the install (as in the
+# reference), so the shortest are 1 and 3 = W-1
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_PROMPT_LENS = (1, 3, 129, 777, 1000, 1031, 1999, 2000)
+MAMBA_MAX_SEQ = 2048
+MAMBA_STEPS = 16                    # decode steps of all 8 sessions
+SCAN_D, SCAN_N, SCAN_R = 8192, 16, 256      # falcon-mamba's scan widths
+SCAN_CASES = ((1, 1), (1, 3), (1, 129), (1, 777), (1, 1000), (1, 2000),
+              (2, 129))             # (B, S) held against the plain version
+SCAN_TIMED_S = (1, 129, 1000, 2000)
+SCAN_TOL = 1e-4                     # atol and rtol: tests/test_kernels.py:132
+SCAN_OPS = 8                        # float32 operations per (t, d, n)
+STATE_TOL = 1e-3                    # the scan on the path's own inputs
+CPU_MAMBA_LAYERS = 2
 
 IP_C, IP_S = 0x0A000002, 0x0A000001      # 10.0.0.2 -> 10.0.0.1
 
@@ -231,6 +262,9 @@ def time_cuda(torch, fn, iters=50, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+PLACEHOLDER = "spin_kernel"          # the kernel of torch.cuda._sleep
+
+
 def device_ms(torch, fn, iters=50, only=None):
     """Device time per call from torch.profiler (CUDA activity only, so
     every event is a kernel or a copy on the card): the sum of the events'
@@ -243,17 +277,36 @@ def device_ms(torch, fn, iters=50, only=None):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the first few kernels of a window have been seen to go
+        # unrecorded: placeholder kernels, left out below, take their place
+        for _ in range(16):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     total_us, count, top = 0.0, 0, []
     for e in prof.key_averages():
+        if PLACEHOLDER in e.key:
+            continue
         if only is None or only in e.key:
             total_us += e.self_device_time_total
             count += e.count
             top.append((e.self_device_time_total / 1e3 / iters, e.count
                         // iters, e.key[:70]))
     return total_us / 1e3 / iters, count / iters, sorted(top)[::-1][:8]
+
+
+def kernel_ms(torch, fn, name, iters):
+    """Device time of one launch of the kernel whose name holds ``name``,
+    for an ``fn`` that launches it once: the profiler's mean over the
+    launches it recorded.  On the card's machine the profiler has been
+    seen to leave up to a third of a window's launches unrecorded, so a
+    sum divided by the calls would read short.  Returns (ms, launches
+    recorded per call)."""
+    total, per_call, _ = device_ms(torch, fn, iters=iters, only=name)
+    check(per_call > 0, f"the profiler recorded no {name} launch")
+    return total / per_call, per_call
 
 
 def bound_ms(nbytes, nops):
@@ -355,7 +408,7 @@ def flash_phase(torch, dev, rng):
         err = (call().float() - plain().float()).abs().max().item()
         lib_err = (call().float() - lib().transpose(1, 2).reshape(
             1, S, 16, 1, 64).float()).abs().max().item()
-        ms, _, _ = device_ms(torch, call, iters=20, only="flash")
+        ms, recorded = kernel_ms(torch, call, "flash", iters=20)
         p_ms, p_kernels, _ = device_ms(torch, plain, iters=5)
         l_ms, _, _ = device_ms(torch, lib, iters=20)
         b_ms, b_by = flash_bound(torch, 1, S, 16, 16, 64, dt)
@@ -363,6 +416,7 @@ def flash_phase(torch, dev, rng):
                       f"causal", "max_abs_err": err, "sdpa_max_abs_err":
                       lib_err, "ms": ms, "plain_ms": p_ms,
                       "plain_kernels": p_kernels, "library_ms": l_ms,
+                      "profiler_launches_per_call": recorded,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "call_ms": time_cuda(torch, call, iters=20)})
         print(f"[flash] S={S} bf16: kernel {ms:.4f} ms, plain {p_ms:.4f} "
@@ -897,6 +951,394 @@ def lm_cpu_check(torch, dev, cfg, seed):
             "prefill_logit_max_abs_err": logit_err}
 
 
+# ---------------------------------------------------------------------------
+# the Mamba selective scan: the kernel against its plain version
+
+
+def scan_inputs(torch, rng, dev, B_, S):
+    """Seeded inputs at falcon-mamba's scan widths, as its prefill makes
+    them: u normal, dt a softplus of a normal shifted by -1, B and C
+    strided column views of one (B, S, dt_rank + 2N) tensor (the model's
+    ``x_proj`` output), A = -(1..N) on every channel (the model's init)."""
+    def dev_f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    u = dev_f32(rng.standard_normal((B_, S, SCAN_D)))
+    dt = dev_f32(np.log1p(np.exp(rng.standard_normal((B_, S, SCAN_D))
+                                 - 1.0)))
+    dbc = dev_f32(rng.standard_normal((B_, S, SCAN_R + 2 * SCAN_N)))
+    _, bm, cm = dbc.split([SCAN_R, SCAN_N, SCAN_N], dim=-1)
+    A = -torch.arange(1, SCAN_N + 1, dtype=torch.float32,
+                      device=dev).repeat(SCAN_D, 1)
+    return u, dt, bm, cm, A
+
+
+def scan_bound(B_, S, D, N):
+    """Least time for the scan: u, dt and y (B, S, D), B and C (B, S, N),
+    A and h_last each read or written once; SCAN_OPS float32 operations
+    per (t, d, n) on the CUDA cores."""
+    nbytes = 4 * (3 * B_ * S * D + 2 * B_ * S * N + D * N + B_ * D * N)
+    return bound_ms(nbytes, SCAN_OPS * B_ * S * D * N)
+
+
+def allclose_err(got, want, tol):
+    """(max |got - want|, whether every element is within tol + tol *
+    |want|, numpy's allclose with atol = rtol = tol)."""
+    d = (got - want).abs()
+    return d.max().item(), bool((d <= tol + tol * want.abs()).all())
+
+
+def scan_phase(torch, dev, rng):
+    """Hold the kernel against its plain version on the card at
+    falcon-mamba's widths (D = 8192, N = 16, B and C strided views) for
+    the prompt lengths of the path, B = 2, and the reference's carry test;
+    time the kernel at S = 1, 129, 1000, 2000 and the plain version at
+    2000."""
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = []
+    for B_, S in SCAN_CASES:
+        args = scan_inputs(torch, rng, dev, B_, S)
+        y, h = scan_ops.mamba_scan(*args)
+        wy, wh = mamba_scan_ref(*args)
+        ey, ok_y = allclose_err(y, wy, SCAN_TOL)
+        eh, ok_h = allclose_err(h, wh, SCAN_TOL)
+        check(ok_y and ok_h, f"mamba_scan kernel != plain at B={B_} S={S}: "
+              f"y {ey}, h_last {eh} (tolerance {SCAN_TOL})")
+        cases.append({"B": B_, "S": S, "y_max_abs_err": ey,
+                      "h_max_abs_err": eh})
+    # the reference's carry test (tests/test_kernels.py:138-151): decay ~1
+    # and constant input, so y grows linearly over the whole sequence
+    B_, S, D, N = 1, 512, 32, 4
+    y, _ = scan_ops.mamba_scan(
+        torch.ones((B_, S, D), device=dev),
+        torch.full((B_, S, D), 1e-3, device=dev),
+        torch.ones((B_, S, N), device=dev), torch.ones((B_, S, N), device=dev),
+        torch.full((D, N), -1e-6, device=dev))
+    yt = y[0, :, 0].cpu().numpy()
+    check((np.diff(yt) > 0).all()
+          and abs(yt[-1] / yt[127] - S / 128.0) <= 1e-2 * S / 128.0,
+          "mamba_scan kernel: the state does not carry across the sequence")
+    torch.cuda.synchronize()
+    err = max(max(c["y_max_abs_err"], c["h_max_abs_err"]) for c in cases)
+    print(f"[scan] {len(cases) + 1} cases (D={SCAN_D}, N={SCAN_N}, B and C "
+          f"strided, the carry test) within {SCAN_TOL} of the plain version "
+          f"(TF32 off); max error {err:.3g}")
+
+    sizes = []
+    for S in SCAN_TIMED_S:
+        args = scan_inputs(torch, rng, dev, 1, S)
+        call = lambda: scan_ops.mamba_scan(*args)                  # noqa
+        ms, per_call = kernel_ms(torch, call, "mamba_scan", iters=20)
+        b_ms, b_by = scan_bound(1, S, SCAN_D, SCAN_N)
+        row = {"S": S, "shape": f"u, dt (1, {S}, {SCAN_D}); B, C (1, {S}, "
+               f"{SCAN_N}) strided views of (1, {S}, "
+               f"{SCAN_R + 2 * SCAN_N}); float32", "ms": ms,
+               "profiler_launches_per_call": per_call,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "call_ms": time_cuda(torch, call, iters=20)}
+        if S == SCAN_TIMED_S[-1]:
+            plain = lambda: mamba_scan_ref(*args)                  # noqa
+            row["plain_ms"], row["plain_kernels"], _ = device_ms(
+                torch, plain, iters=1)
+        sizes.append(row)
+        print(f"[scan] S={S}: kernel {ms:.4f} ms ({per_call:.2f} recorded "
+              f"a call; call {row['call_ms']:.4f}), bound {b_ms:.5f} ms "
+              f"({b_by})" + (f", plain {row['plain_ms']:.3f} ms "
+                             f"({row['plain_kernels']:.0f} kernels)"
+                             if "plain_ms" in row else ""))
+    return {"cases": cases, "max_abs_err": err, "sizes": sizes}
+
+
+# ---------------------------------------------------------------------------
+# Mamba serving: the path, its checks and its profile
+
+
+def mamba_path(torch, dev, cfg, params, prompt_lens, n_steps, n_engines,
+               seed):
+    """The Mamba serving path: ``n_engines`` ``ServeEngine``s prefill the
+    same prompts (the scan on the kernel on the card), their caches must be
+    equal; then each decodes ``n_steps`` steps of every session with
+    ``model.decode_step`` under ``set_sync_debug_mode("error")`` (the host
+    read that ends ``ServeEngine.step`` stays outside), and their tokens
+    must be equal.  A 2-token prompt must be refused as the reference
+    refuses it.  Returns what the checks and timings need."""
+    from repro_torch import convert
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in prompt_lens]
+    M = len(prompts)
+    real_prefill, real_decode = TM.prefill, TM.decode_step
+    logits = []
+
+    def prefill(*a, **k):            # keeps each prefill's last logits
+        lg, cache = real_prefill(*a, **k)
+        logits.append(lg.float()[0].clone())
+        return lg, cache
+
+    def decode_step(*a, **k):        # a host sync inside the step raises
+        with sync_errors(torch, dev):
+            return real_decode(*a, **k)
+
+    def snapshot(eng):
+        return {k: t.clone() for k, t in convert.flatten(eng.cache).items()}
+
+    sync(torch, dev)
+    scan_ops.mamba_scan.launches = 0
+    TM.prefill, TM.decode_step = prefill, decode_step
+    try:
+        engines = []
+        for _ in range(n_engines):
+            eng = ServeEngine(cfg, params, max_sessions=M,
+                              max_seq=MAMBA_MAX_SEQ)
+            sids = [eng.new_session(pr) for pr in prompts]
+            check(sids == list(range(M)), f"session ids {sids}")
+            engines.append(eng)
+        sync(torch, dev)
+        launches = scan_ops.mamba_scan.launches
+        after_prefill = snapshot(engines[0])
+        tokens = [np.stack([eng.step() for _ in range(n_steps)])
+                  for eng in engines]
+        sync(torch, dev)
+    finally:
+        TM.prefill, TM.decode_step = real_prefill, real_decode
+    on = int(dev.type == "cuda")
+    check(launches == on * n_engines * M * cfg.n_layers,
+          f"mamba_scan launches {launches} != {cfg.n_layers} per prefill")
+    for eng in engines[1:]:
+        tree_equal(torch, convert, engines[0].cache, eng.cache,
+                   "two engines' states after the same prefills and steps")
+        check(np.array_equal(tokens[0], tokens[-1]), "two engines' tokens")
+        check(torch.equal(engines[0].last_tok, eng.last_tok)
+              and torch.equal(engines[0].pos, eng.pos),
+              "two engines' last tokens or positions")
+    check(engines[0].pos.cpu().tolist() == [n + n_steps for n in prompt_lens],
+          "session positions after decoding")
+
+    # a prompt of 2 tokens: its conv state (2 rows) does not broadcast into
+    # the slot's W-1 = 3, and the reference's install raises there too
+    spare = ServeEngine(cfg, params, max_sessions=1, max_seq=MAMBA_MAX_SEQ)
+    try:
+        spare.new_session(prompts[-1][:2])
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("a 2-token prompt was installed; the reference refuses it")
+    check("installs only when it has 1 token" in refused
+          and not spare.used.any(), f"2-token prompt: {refused}")
+    del spare
+    print(f"[mamba] {n_engines} engines x {M} sessions (prompts "
+          f"{list(prompt_lens)}): caches equal, {n_steps} decode steps with "
+          f"no host sync inside decode_step, tokens equal; a 2-token prompt "
+          f"refused as by the reference; launches {launches}")
+    return {"engines": engines, "prompts": prompts, "launches": launches,
+            "tokens": tokens[0], "logits": logits[:M],
+            "after_prefill": after_prefill, "after_decode":
+            snapshot(engines[0]), "two_token_prompt": refused}
+
+
+def mamba_logits_check(torch, dev, cfg, params, prompts):
+    """For each prompt, on the card, at full depth:
+    - prefill through the kernel in bf16 (host clock, synchronized): the
+      path's prefill time;
+    - prefill in bf16 with the plain version run beside the kernel at every
+      layer, on that layer's own inputs: y and h_last within STATE_TOL;
+    - prefill in float32 through the kernel and through the plain version:
+      last-token logits within LOGIT_TOL of the largest logit, the cache's
+      h within LOGIT_TOL of its largest entry;
+    - prefill in bf16 through the plain version: the logits' and h's
+      differences from the kernel's are recorded, and not held to a
+      tolerance.  Across 64 bf16 layers the two scans' float32 rounding
+      (1e-5) flips single bf16 roundings, and the later layers carry them
+      on: on an H100 a 129-token prompt differed by 0.16 at a largest logit
+      of 4.19, five bf16 units, while on identical inputs the two agree
+      within 1.2e-5."""
+    import dataclasses
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import model as TM
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    plain_ops = types.SimpleNamespace(mamba_scan=mamba_scan_ref)
+
+    def prefill(c, tok, ops=None):
+        TB.scan_ops = ops or scan_ops
+        try:
+            lg, cache = TM.prefill(c, params, {"tokens": tok})
+        finally:
+            TB.scan_ops = scan_ops
+        return lg.float()[0, :cfg.vocab], cache["units"]["p0"]["h"]
+
+    def diff(a, b):
+        return (a - b).abs().max().item(), b.abs().max().item()
+
+    out = []
+    for pr in prompts:
+        tok = torch.from_numpy(pr[None]).to(dev)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        lk, hk = prefill(cfg, tok)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(lk).all()), f"non-finite logits at "
+              f"prompt length {len(pr)}")
+        layer = {"y": 0.0, "h": 0.0, "n": 0}
+
+        def beside(u, dt, bm, cm, A):
+            y, h = scan_ops.mamba_scan(u, dt, bm, cm, A)
+            wy, wh = mamba_scan_ref(u, dt, bm, cm, A)
+            for name, got, want in (("y", y, wy), ("h", h, wh)):
+                err, ok = allclose_err(got, want, STATE_TOL)
+                check(ok, f"scan kernel != plain on layer {layer['n']}'s "
+                      f"inputs at prompt length {len(pr)}: {name} {err}")
+                layer[name] = max(layer[name], err)
+            layer["n"] += 1
+            return y, h
+
+        prefill(cfg, tok, types.SimpleNamespace(mamba_scan=beside))
+        check(layer["n"] == cfg.n_layers, f"{layer['n']} scans in a prefill")
+        row = {"S": len(pr), "prefill_ms": ms,
+               "layer_y_max_abs_err": layer["y"],
+               "layer_h_max_abs_err": layer["h"]}
+        for name, c in (("f32", cfg32), ("bf16", cfg)):
+            lk_, hk_ = (lk, hk) if name == "bf16" else prefill(c, tok)
+            lp, hp = prefill(c, tok, plain_ops)
+            err, scale = diff(lk_, lp)
+            h_err, h_scale = diff(hk_, hp)
+            same = int(lk_.argmax()) == int(lp.argmax())
+            top2 = lp.topk(2).values
+            row[name] = {"max_abs_err": err, "scale": scale,
+                         "h_max_abs_err": h_err, "h_scale": h_scale,
+                         "greedy_equal": same,
+                         "top2_margin": (top2[0] - top2[1]).item()}
+            if name == "f32":
+                check(err <= LOGIT_TOL * scale and h_err <= LOGIT_TOL
+                      * h_scale, f"float32 prefill kernel vs plain at prompt "
+                      f"length {len(pr)}: logits {err} (largest {scale}), h "
+                      f"{h_err} (largest {h_scale}), tolerance {LOGIT_TOL} "
+                      f"of the largest")
+        out.append(row)
+    worst = {k: max(o[k]["max_abs_err"] / o[k]["scale"] for o in out)
+             for k in ("f32", "bf16")}
+    print(f"[mamba] prefill, kernel vs plain at {cfg.n_layers} layers: on "
+          f"each layer's own inputs (bf16 path) y within "
+          f"{max(o['layer_y_max_abs_err'] for o in out):.3g}, h_last within "
+          f"{max(o['layer_h_max_abs_err'] for o in out):.3g} (tolerance "
+          f"{STATE_TOL}); float32 logits within {worst['f32']:.3g} of the "
+          f"largest (tolerance {LOGIT_TOL}); bf16 logits (not held) within "
+          f"{worst['bf16']:.3g} of the largest, greedy equal "
+          f"{sum(o['bf16']['greedy_equal'] for o in out)}/{len(out)}")
+    return out
+
+
+def mamba_profile(torch, cfg, params, path):
+    """Where the time goes: one decode step of the 8 sessions (on a copy of
+    the first engine's state): host clock and device time with its largest
+    events; each prefill's device time with the kernel's share; and the
+    serving loop, ``ServeEngine.step`` over MAMBA_STEPS steps, each ending
+    in its host read: wall time against device time (busy share)."""
+    from repro_torch.models import model as TM
+    from repro_torch.tree import tree_map
+    eng = path["engines"][0]
+    cache = tree_map(torch.clone, eng.cache)
+
+    def step():
+        TM.decode_step(cfg, params, cache, eng.last_tok, eng.pos)
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    d_ms, d_events, d_top = device_ms(torch, step, iters=3)
+    prefill = {}
+    for pr in path["prompts"]:
+        tok = torch.from_numpy(pr[None]).to(eng.device)
+        fn = lambda: TM.prefill(cfg, params, {"tokens": tok})     # noqa
+        p_ms, p_events, p_top = device_ms(torch, fn, iters=1)
+        s_ms, s_launches, _ = device_ms(torch, fn, iters=1,
+                                        only="mamba_scan")
+        prefill[len(pr)] = {"device_ms": p_ms, "scan_ms": s_ms,
+                            "scan_share": s_ms / p_ms,
+                            "scan_launches_recorded": s_launches,
+                            "device_events": p_events, "top": p_top[:4]}
+    server = path["engines"][-1]
+
+    def loop():
+        for _ in range(MAMBA_STEPS):
+            server.step()
+
+    loop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop()
+    loop_wall = (time.perf_counter() - t0) * 1e3
+    loop_dev, loop_events, _ = device_ms(torch, loop, iters=1)
+    out = {"decode_wall_ms": float(np.median(walls)),
+           "decode_wall_samples": walls, "decode_device_ms": d_ms,
+           "decode_device_events": d_events, "decode_top": d_top,
+           "prefill_device": prefill, "loop_steps": MAMBA_STEPS,
+           "loop_wall_ms": loop_wall, "loop_device_ms": loop_dev,
+           "loop_device_events": loop_events,
+           "loop_busy_share": loop_dev / loop_wall}
+    last = prefill[len(path["prompts"][-1])]
+    print(f"[mamba] decode step of {eng.M} sessions: "
+          f"{out['decode_wall_ms']:.2f} ms wall, {d_ms:.2f} ms device from "
+          f"{d_events:.0f} events; {MAMBA_STEPS} ServeEngine steps "
+          f"{loop_wall:.1f} ms wall, {loop_dev:.1f} ms device (busy "
+          f"{100 * out['loop_busy_share']:.1f} %); prefill at "
+          f"{len(path['prompts'][-1])} tokens {last['device_ms']:.2f} ms "
+          f"device, the scan kernel {last['scan_ms']:.2f} ms")
+    return out
+
+
+def mamba_cpu_check(torch, dev, cfg, seed):
+    """The Mamba path at CPU_MAMBA_LAYERS layers of the full width in
+    float32, on the card and on the CPU (plain versions): tokens equal;
+    each prefill's logits and the state after prefill and after decoding
+    within 1e-3 (float32 everywhere, TF32 off, sums in another order; the
+    kernel alone is held to 1e-4)."""
+    import copy
+    import dataclasses
+    from repro_torch.models import model as TM
+    cfg2 = dataclasses.replace(cfg, n_layers=CPU_MAMBA_LAYERS,
+                               compute_dtype="float32")
+    cpu = torch.device("cpu")
+    params_g = TM.init_params(cfg2, seed=seed, device=dev)
+    params_c = copy.deepcopy(params_g).to(cpu)
+    g, c = (mamba_path(torch, d, cfg2, p, MAMBA_PROMPT_LENS, MAMBA_STEPS, 1,
+                       seed)
+            for d, p in ((dev, params_g), (cpu, params_c)))
+    check(np.array_equal(g["tokens"], c["tokens"]),
+          "CPU Mamba tokens != card tokens")
+    logit_err = max((a.cpu() - b).abs().max().item()
+                    for a, b in zip(g["logits"], c["logits"]))
+    check(logit_err <= 1e-3, f"CPU Mamba prefill logits differ by "
+          f"{logit_err}")
+    errs = {}
+    for when in ("after_prefill", "after_decode"):
+        check(g[when].keys() == c[when].keys(), "CPU state keys != card")
+        errs[when] = max((g[when][k].cpu() - c[when][k]).abs().max().item()
+                         for k in g[when])
+        check(errs[when] <= 1e-3, f"CPU Mamba state {when} differs from the "
+              f"card's by {errs[when]}")
+    print(f"[cpu] Mamba path at {CPU_MAMBA_LAYERS} layers of the full width, "
+          f"float32: CPU tokens == card over {MAMBA_STEPS} steps; logit error"
+          f" {logit_err:.3g}, state error after prefill "
+          f"{errs['after_prefill']:.3g}, after decoding "
+          f"{errs['after_decode']:.3g}")
+    return {"layers": CPU_MAMBA_LAYERS, "decode_steps": MAMBA_STEPS,
+            "prefill_logit_max_abs_err": logit_err,
+            "state_max_abs_err": errs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1025,12 +1467,13 @@ def main() -> int:
         valid = int(cl.clamp(0, max(cp.shape[1] - cs, 0)).sum().item())
         nbytes = valid + cp.shape[0] * (4 + 8 + (0 if cps is None else 8))
         b_ms, b_by = bound_ms(nbytes, valid)
-        ms, _, _ = device_ms(torch, call, iters=200, only="checksum16")
+        ms, recorded = kernel_ms(torch, call, "checksum16", iters=200)
         p_ms, p_kernels, _ = device_ms(torch, plain, iters=20)
         csum_sites.append({
             "site": site, "shape": f"({cp.shape[0]}, {cp.shape[1]}) uint8 "
             f"from byte {cs}, {valid} valid bytes, pseudo "
             f"{cps is not None}", "max_abs_err": err, "ms": ms,
+            "profiler_launches_per_call": recorded,
             "plain_ms": p_ms, "plain_kernels": p_kernels,
             "call_ms": time_cuda(torch, call, iters=200),
             "plain_call_ms": time_cuda(torch, plain, iters=20),
@@ -1040,7 +1483,7 @@ def main() -> int:
     rs_call = lambda: rs_ops.encode_blocks(blocks_view, 8, 2)       # noqa
     rs_plain = lambda: rs_encode_blocks_ref(                        # noqa
         blocks_view, rs_ops.mats(8, 2)[1])
-    ms_r, _, _ = device_ms(torch, rs_call, iters=200, only="rs_encode")
+    ms_r, recorded_r = kernel_ms(torch, rs_call, "rs_encode", iters=200)
     plain_r, plain_r_kernels, _ = device_ms(torch, rs_plain, iters=10)
     call_r = time_cuda(torch, rs_call, iters=200)
     call_plain_r = time_cuda(torch, rs_plain, iters=10)
@@ -1312,7 +1755,48 @@ def main() -> int:
     # ---- 8. the LM path on the CPU ------------------------------------------
     cpu_lm = lm_cpu_check(torch, dev, cfg, SEED)
 
-    # ---- 9. results ---------------------------------------------------------
+    # ---- 9. the Mamba path at full width and depth -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                  "peak_so_far_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[mamba] before the Mamba phase: {mem_before['allocated_gb']:.2f}"
+          f" GB allocated; peak of the earlier phases "
+          f"{mem_before['peak_so_far_gb']:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t_mamba = time.time()
+    scan = scan_phase(torch, dev, rng)
+    mcfg = get_config(MAMBA_ARCH)
+    t0 = time.time()
+    mparams = TM.init_params(mcfg, seed=SEED)
+    torch.cuda.synchronize()
+    minit_s = time.time() - t0
+    mp = mamba_path(torch, dev, mcfg, mparams, MAMBA_PROMPT_LENS, MAMBA_STEPS,
+                    2, SEED)
+    mlogits = mamba_logits_check(torch, dev, mcfg, mparams, mp["prompts"])
+    mprof = mamba_profile(torch, mcfg, mparams, mp)
+    mamba_line = {"mamba_path": {
+        "card": card, "arch": MAMBA_ARCH, "layers": mcfg.n_layers,
+        "d_model": mcfg.d_model, "d_inner": mcfg.d_inner,
+        "ssm_state": mcfg.ssm_state, "vocab": mcfg.vocab,
+        "compute": "bfloat16", "engines": 2,
+        "sessions": len(MAMBA_PROMPT_LENS),
+        "prompt_lens": list(MAMBA_PROMPT_LENS), "decode_steps": MAMBA_STEPS,
+        "launches": mp["launches"], "launches_per_prefill": mcfg.n_layers,
+        "two_token_prompt": mp["two_token_prompt"],
+        "params_init_s": minit_s, "memory_before": mem_before,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "prefill_ms": {o["S"]: o["prefill_ms"] for o in mlogits},
+        "prefill_checks": mlogits, "profile": mprof,
+        "seconds": time.time() - t_mamba}}
+    del mp, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 10. the Mamba path on the CPU --------------------------------------
+    cpu_mamba = mamba_cpu_check(torch, dev, mcfg, SEED)
+
+    # ---- 11. results --------------------------------------------------------
     kernels = [
         {"name": "checksum16", "route": "cuda",
          "source": "src/repro_torch/csrc/checksum.cu",
@@ -1336,7 +1820,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/rs_encode/kernel.py:38",
          "launches": launches["rs_encode"], "max_abs_err": err_r,
          "bit_identical_to_plain": err_r == 0,
-         "ms": ms_r, "plain_ms": plain_r, "bound_ms": br, "bound_by": br_by,
+         "ms": ms_r, "profiler_launches_per_call": recorded_r,
+         "plain_ms": plain_r, "bound_ms": br, "bound_by": br_by,
          "library_ms": None, "call_ms": call_r, "plain_call_ms": call_plain_r,
          "shape": f"rs_serve: ({B}, 4096) of ({B}, {L}) -> ({B}, 1024)",
          "launches_per_batch": launches["rs_encode"] // batches_run},
@@ -1355,12 +1840,26 @@ def main() -> int:
              dn: max(e for c, e in flash["errs"].items() if c[1] == dn)
              for dn in ("float32", "bfloat16")},
          "launches_per_prefill": cfg.n_layers},
+        {"name": "mamba_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan/kernel.py:52",
+         "launches": mamba_line["mamba_path"]["launches"],
+         "max_abs_err": scan["max_abs_err"],
+         **{k: scan["sizes"][-1][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "call_ms")},
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes a selective scan",
+         "shape": scan["sizes"][-1]["shape"], "sizes": scan["sizes"],
+         "cases": scan["cases"],
+         "launches_per_prefill": mcfg.n_layers},
     ]
     for kd in kernels[:2]:
         kd["lm_path_launches"] = lm_line["lm_path"]["launches"][kd["name"]]
     print(json.dumps(main_line))
     print(json.dumps(lm_line))
     print(json.dumps({"lm_cpu_check": cpu_lm}))
+    print(json.dumps(mamba_line))
+    print(json.dumps({"mamba_cpu_check": cpu_mamba}))
     print(json.dumps({"app_group_launches": app_launches,
                       "seconds": time.time() - t_all}))
     print(json.dumps({"kernels": kernels}))

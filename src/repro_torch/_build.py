@@ -31,6 +31,7 @@ SIGNATURES = {
                           _P, _P, _I64, _P],
     "beehive_flash_attention": [_P, _P, _P, _P, *[_I64] * 19, ctypes.c_int,
                                 _I64, ctypes.c_int, _P],
+    "beehive_mamba_scan": [*[_P] * 7, *[_I64] * 18, _P],
 }
 
 _lock = threading.Lock()

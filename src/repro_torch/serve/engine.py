@@ -22,6 +22,12 @@ from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 
 
+def _broadcasts(shape, into) -> bool:
+    """True when a tensor of ``shape`` broadcasts to exactly ``into``."""
+    return len(shape) <= len(into) and all(
+        a in (1, b) for a, b in zip(shape[::-1], into[::-1]))
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: model.Params,
                  max_sessions: int = 4, max_seq: int = 128):
@@ -48,7 +54,8 @@ class ServeEngine:
         """Free slot `sid` (explicit close / LRU eviction).  The cache
         column is left in place — a freed slot's stale entries are
         invisible (attention never reads past `pos`, and `pos` is reset on
-        the next install)."""
+        the next install; a recurrent state is overwritten whole by the
+        next install)."""
         self.used[sid] = False
         self.pos[sid] = 0
         self.last_tok[sid] = 0
@@ -76,33 +83,60 @@ class ServeEngine:
 
         Alignment: global-attention caches are prefix-aligned (position i
         at index i -> pad right); rolling-window caches keep the newest
-        entry last (-> pad left).  The rest of the slot is zeroed."""
+        entry last (-> pad left); the rest of such a slot is zeroed.
+        Recurrent states (Mamba's ``h`` and ``conv``) are copied as they
+        are, with the reference's broadcasting: a 1-token prompt's one
+        conv row fills all W-1 rows, and a prompt of 2 to W-2 tokens does
+        not fit (the reference raises there too).  Every leaf is checked
+        before any is written, so a refused install leaves the engine as
+        it was."""
         def put(slot, new, left: bool):
             # slot: (..., T_max, KV, hd) with the sequence axis at -3
             T, W = new.shape[-3], slot.shape[-3]
-            if T > W:
-                raise ValueError(f"prefill cache of {T} rows does not fit "
-                                 f"a slot of {W}")
             slot.zero_()
             if left:
                 slot[..., W - T:, :, :] = new
             else:
                 slot[..., :T, :, :] = new
 
+        moves = []
         for i, entry in enumerate(self.cfg.pattern):
             mixer, _ = self.cfg.entry(entry)
             for name, leaf in self.cache["units"][f"p{i}"].items():
                 new = pcache["units"][f"p{i}"][name][:, 0]   # (U, T, ...)
-                put(leaf[:, sid], new, left=(mixer == "attn_l"))
+                moves.append((leaf[:, sid], new, mixer, name))
         for j, entry in enumerate(self.cfg.remainder):
             mixer, _ = self.cfg.entry(entry)
             for name, leaf in self.cache["rem"][j].items():
-                put(leaf[sid], pcache["rem"][j][name][0],
-                    left=(mixer == "attn_l"))
+                moves.append((leaf[sid], pcache["rem"][j][name][0], mixer,
+                              name))
+        for slot, new, mixer, name in moves:
+            if name in ("k", "v"):
+                if new.shape[-3] > slot.shape[-3]:
+                    raise ValueError(f"prefill cache of {new.shape[-3]} rows "
+                                     f"does not fit a slot of "
+                                     f"{slot.shape[-3]}")
+            elif not _broadcasts(new.shape, slot.shape):
+                raise ValueError(
+                    f"the prefill state {name!r} of shape "
+                    f"{tuple(new.shape)} does not broadcast into the slot's "
+                    f"{tuple(slot.shape)}: as in the reference's "
+                    f"_install_cache, a prompt shorter than the conv state "
+                    f"(W-1 = {slot.shape[-2]} rows) installs only when it "
+                    f"has 1 token")
+        for slot, new, mixer, name in moves:
+            if name in ("k", "v"):
+                put(slot, new, left=(mixer == "attn_l"))
+            else:
+                slot.copy_(new.expand_as(slot))
 
     # ---- batched decode ---------------------------------------------------
     def step(self) -> np.ndarray:
-        """One decode step for every active session. Returns next tokens."""
+        """One decode step for every active session. Returns next tokens.
+
+        As in the reference, the step runs over every slot: a free slot's
+        position and token stay, but its recurrent state (Mamba) moves on
+        each step until the next install overwrites it."""
         logits, self.cache = model.decode_step(self.cfg, self.params,
                                                self.cache, self.last_tok,
                                                self.pos)

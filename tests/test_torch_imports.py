@@ -47,7 +47,9 @@ def test_module_list_covers_the_slice():
                  "kernels.flash_attention.ops", "kernels.flash_attention.ref",
                  "models.config", "models.layers", "models.blocks",
                  "models.model", "configs", "configs.serve_smoke",
-                 "configs.qwen1_5_0_5b", "serve.engine", "apps.lm_server"):
+                 "configs.qwen1_5_0_5b", "serve.engine", "apps.lm_server",
+                 "kernels.mamba_scan.ops", "kernels.mamba_scan.ref",
+                 "configs.falcon_mamba_7b"):
         assert f"repro_torch.{want}" in names, want
 
 

@@ -221,8 +221,7 @@ def test_embedding_out_of_range_tokens_match_jnp_take():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("olmoe-1b-7b", "MoE"), ("falcon-mamba-7b", "Mamba-1"),
-    ("recurrentgemma-2b", "RG-LRU")])
+    ("olmoe-1b-7b", "MoE"), ("recurrentgemma-2b", "RG-LRU")])
 def test_unported_mixers_refuse_by_name(arch, what):
     with pytest.raises(NotImplementedError, match=what):
         TM.init_params(t_smoke(arch), device="cpu")
@@ -231,7 +230,10 @@ def test_unported_mixers_refuse_by_name(arch, what):
 @pytest.mark.parametrize("arch,over,what", [
     ("hubert-xlarge", {}, "audio_stub front end"),
     ("internvl2-2b", {}, "vision_stub front end"),
-    ("qwen1.5-0.5b", {"attn_impl": "iso"}, "iso")])
+    ("qwen1.5-0.5b", {"attn_impl": "iso"}, "iso"),
+    ("falcon-mamba-7b", {"ssm_scan_dtype": "bfloat16"},
+     "ssm_scan_dtype='bfloat16'.*item 12"),
+    ("falcon-mamba-7b", {"ssm_impl": "noscan"}, "ssm_impl='noscan'.*item 12")])
 def test_unported_options_refuse_by_name(arch, over, what):
     cfg = t_smoke(arch, **over)
     params = TM.init_params(cfg, device="cpu")

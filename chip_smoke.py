@@ -6,16 +6,24 @@
 Phases, each of which fails the run when it fails:
 
   1. print the card's name and power limit (``nvidia-smi``);
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``);
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``) and
+     print each kernel instance's registers, static shared memory and
+     spills from the build log (none allowed in the bf16 flash and the
+     scan kernels, whose instances the log must name); the timed launches
+     of those two add their registers and shared memory (static and
+     dynamic) as the profiler's trace records them;
   3. hold each kernel against its plain PyTorch version on the card —
      checksum and RS bit for bit (checksum: B=512, L=4160 and odd widths,
      lengths 0, odd, L and > L, with and without the pseudo-header term,
      aligned and not; RS: the (k, p) sweep of the reference's kernel tests
      and 512 requests of 4 KiB), flash attention within 2e-5 (float32) /
      2e-2 (bf16) with TF32 off (qwen1.5-0.5b's prefill shapes, the
-     reference's sweep, causal=False, a strided view) — and time each at
-     the main paths' shapes, flash beside ``scaled_dot_product_attention``
-     as a yardstick;
+     reference's sweep, causal=False, the bf16 kernel's edges: S = 63..65,
+     127, 333, a window edge inside a key tile, G = 2, 4, 8, hd 80
+     bidirectional, hd 128, gemma3-12b's hd 256 with its window; strided
+     views in float32 and bf16) — and time each at the main paths'
+     shapes, flash beside ``scaled_dot_product_attention`` as a
+     yardstick, with the card's clock and power sampled beside each time;
   4. the RS path: an ``rs_serve`` RPC stack (eth -> ip -> udp/rpc ->
      RS(8,2) -> udp -> ip -> eth) on B=512 frames of L=4160: one
      ``rx_tx``, then ``run_stream`` over N=32 batches under
@@ -46,7 +54,8 @@ Phases, each of which fails the run when it fails:
      layers, bf16 compute, seeded weights), once the LM phases' memory is
      freed: the selective-scan kernel held against its plain version
      within 1e-4 (D=8192, N=16, B and C strided views, S from 1 to 2000,
-     B=2, the carry test; TF32 off) and timed; two ``ServeEngine``s prefill
+     one short of, at and one past the kernel's 64-step chunk, decays
+     spanning 1e-8..1, B=2, the carry test; TF32 off) and timed; two ``ServeEngine``s prefill
      8 prompts of 1..2000 tokens through the kernel (their caches must be
      equal, 64 launches a prefill) and decode 16 steps of every session
      with no host sync inside ``decode_step`` (their tokens must be equal);
@@ -66,6 +75,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -99,6 +109,16 @@ UNKNOWN_SESSION = 4242
 LAT_WARMUP, LAT_REQUESTS = 8, 40    # host path steps every session: 48 fit
 CPU_LM_LAYERS, CPU_LM_BATCHES = 2, RS_ONLY_EVERY   # one RS-only batch
 FLASH_QWEN_S = (1, 129, 1000, 1536, 2000)
+FLASH_EDGE_CASES = (  # (S, H, KV, hd, window, causal): the bf16 kernel's edges
+    (63, 16, 16, 64, 0, True), (64, 16, 16, 64, 0, True),   # 64-row tiles
+    (65, 16, 16, 64, 0, True), (127, 16, 16, 64, 0, True),
+    (333, 16, 16, 64, 0, True),
+    (333, 8, 4, 64, 100, True),        # a window edge inside a key tile
+    (333, 16, 8, 64, 0, True), (333, 16, 4, 64, 0, True),   # G = 2, 4
+    (333, 16, 2, 64, 0, True),                              # G = 8
+    (333, 16, 16, 80, 0, False),       # hubert-xlarge: hd 80, bidirectional
+    (333, 8, 2, 128, 0, True),         # hd 128
+    (1100, 16, 8, 256, 1024, True))    # gemma3-12b: hd 256, its window
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_TOL = 2e-2                    # of the largest logit (bf16)
 BF16_PEAK = 989e12                  # H100 SXM dense bf16 (data sheet)
@@ -111,8 +131,11 @@ MAMBA_PROMPT_LENS = (1, 3, 129, 777, 1000, 1031, 1999, 2000)
 MAMBA_MAX_SEQ = 2048
 MAMBA_STEPS = 16                    # decode steps of all 8 sessions
 SCAN_D, SCAN_N, SCAN_R = 8192, 16, 256      # falcon-mamba's scan widths
+SCAN_CHUNK = 64                     # the kernel's timesteps per pass
 SCAN_CASES = ((1, 1), (1, 3), (1, 129), (1, 777), (1, 1000), (1, 2000),
-              (2, 129))             # (B, S) held against the plain version
+              (2, 129), (1, SCAN_CHUNK - 1), (1, SCAN_CHUNK),
+              (1, SCAN_CHUNK + 1))  # (B, S) held against the plain version
+SCAN_SPAN_CASES = ((1, 2000), (2, 333))   # decays spanning 1e-8..1
 SCAN_TIMED_S = (1, 129, 1000, 2000)
 SCAN_TOL = 1e-4                     # atol and rtol: tests/test_kernels.py:132
 SCAN_OPS = 8                        # float32 operations per (t, d, n)
@@ -302,11 +325,14 @@ def kernel_ms(torch, fn, name, iters):
     for an ``fn`` that launches it once: the profiler's mean over the
     launches it recorded.  On the card's machine the profiler has been
     seen to leave up to a third of a window's launches unrecorded, so a
-    sum divided by the calls would read short.  Returns (ms, launches
-    recorded per call)."""
-    total, per_call, _ = device_ms(torch, fn, iters=iters, only=name)
-    check(per_call > 0, f"the profiler recorded no {name} launch")
-    return total / per_call, per_call
+    sum divided by the calls would read short; once it recorded none of
+    a window's launches, so an empty window is taken again, up to three
+    times.  Returns (ms, launches recorded per call)."""
+    for _ in range(3):
+        total, per_call, _ = device_ms(torch, fn, iters=iters, only=name)
+        if per_call > 0:
+            return total / per_call, per_call
+    fail(f"the profiler recorded no {name} launch in three windows")
 
 
 def bound_ms(nbytes, nops):
@@ -314,6 +340,89 @@ def bound_ms(nbytes, nops):
     t_ops = nops / CORE_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def smi_clocks():
+    """One sample of the card's SM clock, its maximum and the power draw,
+    as ``nvidia-smi`` reports them: beside each timed phase, so that a
+    time can be read against the clock it ran at."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                          "power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed ({out.returncode})"
+
+
+def demangle(names):
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True)
+    got = out.stdout.splitlines() if out.returncode == 0 else []
+    return got if len(got) == len(names) else list(names)
+
+
+def kernel_resources(log):
+    """Per kernel instance of the build log (``-Xptxas -v``): its name,
+    registers a thread, spill bytes and static shared memory."""
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rows.append({"kernel": m.group(1), "registers": None,
+                         "spill_bytes": 0, "static_smem": 0})
+            continue
+        if not rows:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem"] = int(m.group(1)) if m else 0
+    for row, name in zip(rows, demangle([r["kernel"] for r in rows])):
+        row["kernel"] = re.sub(r"^void |\(.*", "", name.replace(
+            "(anonymous namespace)::", ""))
+    return rows
+
+
+def launch_resources(torch, fn, name):
+    """What the card's trace records of a launch of the kernel whose name
+    holds ``name``, made by ``fn``: registers a thread, shared memory
+    (static and dynamic, in bytes), grid and block, as the profiler's
+    kernel events carry them (CUPTI's launch record).  The trace is
+    written into the checkout's build directory and removed.  As in
+    ``device_ms``, placeholder kernels open the window and a window that
+    recorded no such launch is taken again, up to three times; None when
+    none did."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / f"trace-{os.getpid()}.json"
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        try:
+            events = json.loads(path.read_text()).get("traceEvents", [])
+        finally:
+            path.unlink(missing_ok=True)
+        for e in events:
+            args = e.get("args", {})
+            if e.get("cat") == "kernel" and name in e.get("name", ""):
+                return {"kernel": e["name"][:80],
+                        "registers": args.get("registers per thread"),
+                        "shared_memory_bytes": args.get("shared memory"),
+                        "grid": args.get("grid"), "block": args.get("block")}
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +476,8 @@ def flash_phase(torch, dev, rng):
                                 (256, 64, 2, 2, 128), (512, 64, 4, 2, 64)):
             cases.append(("sweep", dn, 2, S, kv * g, kv, hd, w, True))
         cases.append(("bidirectional", dn, 2, 300, 4, 2, 64, 0, False))
+        for S, H, KV, hd, w, causal in FLASH_EDGE_CASES:
+            cases.append(("edge", dn, 1, S, H, KV, hd, w, causal))
     errs = {}
     for what, dn, B_, S, H, KV, hd, w, causal in cases:
         dt = getattr(torch, dn)
@@ -387,8 +498,21 @@ def flash_phase(torch, dev, rng):
            - attention_model_ref(q, k, v, window=100)).abs().max().item()
     check(err <= FLASH_TOL["float32"], f"flash kernel != plain on a "
           f"strided model-layout view ({err})")
+    # the same views of bf16 tensors: 16-byte aligned rows whose strides
+    # are not the row width (the bf16 kernel's cp.async path); converted
+    # before slicing, since converting a view makes a dense copy
+    wide, kv_ = wide.bfloat16(), kv_.bfloat16()
+    q, k, v = wide[..., 64:], kv_[:, :, 0], kv_[:, :, 1]
+    check(q.stride(-2) != q.shape[-1] and k.stride(1) != k[0, 0].numel()
+          and not any(t.is_contiguous() for t in (q, k, v)),
+          "the strided bf16 views came out dense")
+    err = (flash_ops.flash_attention(q, k, v, window=100).float()
+           - attention_model_ref(q, k, v, window=100).float()
+           ).abs().max().item()
+    check(err <= FLASH_TOL["bfloat16"], f"flash kernel != plain on a "
+          f"strided bf16 model-layout view ({err})")
     torch.cuda.synchronize()
-    print(f"[flash] {len(cases) + 1} cases within tolerance of the plain "
+    print(f"[flash] {len(cases) + 2} cases within tolerance of the plain "
           f"version; max error float32 "
           f"{max(e for c, e in errs.items() if c[1] == 'float32'):.3g}, "
           f"bfloat16 "
@@ -398,6 +522,7 @@ def flash_phase(torch, dev, rng):
     F_ = torch.nn.functional
     for S in FLASH_QWEN_S:
         dt = torch.bfloat16
+        clocks = [smi_clocks()]
         q, k, v = flash_inputs(torch, rng, dev, dt, 1, S, 16, 16, 64)
         call = lambda: flash_ops.flash_attention(q, k, v)          # noqa
         plain = lambda: attention_model_ref(q, k, v)               # noqa
@@ -418,11 +543,15 @@ def flash_phase(torch, dev, rng):
                       "plain_kernels": p_kernels, "library_ms": l_ms,
                       "profiler_launches_per_call": recorded,
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "call_ms": time_cuda(torch, call, iters=20)})
+                      "call_ms": time_cuda(torch, call, iters=20),
+                      "clocks_sm_max_power": clocks + [smi_clocks()],
+                      "launch": launch_resources(torch, call, "flash")})
         print(f"[flash] S={S} bf16: kernel {ms:.4f} ms, plain {p_ms:.4f} "
               f"ms, SDPA {l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-              f"err {err:.3g}")
-    return {"cases": len(cases) + 1, "errs": errs, "sizes": sizes}
+              f"err {err:.3g}; clocks.sm, max, power "
+              f"{' -> '.join(sizes[-1]['clocks_sm_max_power'])}; launch "
+              f"{sizes[-1]['launch']}")
+    return {"cases": len(cases) + 2, "errs": errs, "sizes": sizes}
 
 
 # ---------------------------------------------------------------------------
@@ -765,6 +894,7 @@ def lm_profile(torch, cfg, params, lm):
 
     step()
     torch.cuda.synchronize()
+    clocks = [smi_clocks()]
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -772,6 +902,7 @@ def lm_profile(torch, cfg, params, lm):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     d_ms, d_events, d_top = device_ms(torch, step, iters=3)
+    clocks.append(smi_clocks())
     prefill = {}
     for pr in lm["prompts"]:
         tok = torch.from_numpy(pr[None]).to(eng.device)
@@ -783,12 +914,13 @@ def lm_profile(torch, cfg, params, lm):
     out = {"decode_wall_ms": float(np.median(walls)),
            "decode_wall_samples": walls, "decode_device_ms": d_ms,
            "decode_device_events": d_events, "decode_top": d_top,
-           "prefill_device": prefill}
+           "decode_clocks_sm_max_power": clocks, "prefill_device": prefill}
     print(f"[lm] decode step of {eng.M} sessions: {out['decode_wall_ms']:.2f}"
           f" ms wall, {d_ms:.2f} ms device from {d_events:.0f} events; "
           f"prefill at {len(lm['prompts'][-1])} tokens: "
           f"{prefill[len(lm['prompts'][-1])]['device_ms']:.2f} ms device, "
-          f"flash {prefill[len(lm['prompts'][-1])]['flash_ms']:.2f} ms")
+          f"flash {prefill[len(lm['prompts'][-1])]['flash_ms']:.2f} ms; "
+          f"decode clocks.sm, max, power {' -> '.join(clocks)}")
     return out
 
 
@@ -955,16 +1087,23 @@ def lm_cpu_check(torch, dev, cfg, seed):
 # the Mamba selective scan: the kernel against its plain version
 
 
-def scan_inputs(torch, rng, dev, B_, S):
+def scan_inputs(torch, rng, dev, B_, S, span=False):
     """Seeded inputs at falcon-mamba's scan widths, as its prefill makes
     them: u normal, dt a softplus of a normal shifted by -1, B and C
     strided column views of one (B, S, dt_rank + 2N) tensor (the model's
-    ``x_proj`` output), A = -(1..N) on every channel (the model's init)."""
+    ``x_proj`` output), A = -(1..N) on every channel (the model's init).
+    ``span``: dt log-uniform in [1e-6, 1.15] instead, so that the decays
+    exp(dt A) span ~1e-8 to ~1 (a carry that vanishes within a step, one
+    that survives the whole sequence)."""
     def dev_f32(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
     u = dev_f32(rng.standard_normal((B_, S, SCAN_D)))
-    dt = dev_f32(np.log1p(np.exp(rng.standard_normal((B_, S, SCAN_D))
-                                 - 1.0)))
+    if span:
+        dt = dev_f32(np.exp(rng.uniform(np.log(1e-6), np.log(1.15),
+                                        (B_, S, SCAN_D))))
+    else:
+        dt = dev_f32(np.log1p(np.exp(rng.standard_normal((B_, S, SCAN_D))
+                                     - 1.0)))
     dbc = dev_f32(rng.standard_normal((B_, S, SCAN_R + 2 * SCAN_N)))
     _, bm, cm = dbc.split([SCAN_R, SCAN_N, SCAN_N], dim=-1)
     A = -torch.arange(1, SCAN_N + 1, dtype=torch.float32,
@@ -997,16 +1136,33 @@ def scan_phase(torch, dev, rng):
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = []
-    for B_, S in SCAN_CASES:
-        args = scan_inputs(torch, rng, dev, B_, S)
+    for B_, S, span in ([(b_, s_, False) for b_, s_ in SCAN_CASES]
+                        + [(b_, s_, True) for b_, s_ in SCAN_SPAN_CASES]):
+        args = scan_inputs(torch, rng, dev, B_, S, span)
         y, h = scan_ops.mamba_scan(*args)
         wy, wh = mamba_scan_ref(*args)
         ey, ok_y = allclose_err(y, wy, SCAN_TOL)
         eh, ok_h = allclose_err(h, wh, SCAN_TOL)
-        check(ok_y and ok_h, f"mamba_scan kernel != plain at B={B_} S={S}: "
+        check(ok_y and ok_h and bool(torch.isfinite(y).all()),
+              f"mamba_scan kernel != plain at B={B_} S={S} span={span}: "
               f"y {ey}, h_last {eh} (tolerance {SCAN_TOL})")
-        cases.append({"B": B_, "S": S, "y_max_abs_err": ey,
-                      "h_max_abs_err": eh})
+        cases.append({"B": B_, "S": S, "decay_span": span,
+                      "y_max_abs_err": ey, "h_max_abs_err": eh})
+    # u and dt as views that are not 16-byte aligned: the kernel copies
+    # them element by element instead of in 16-byte groups
+    B_, S = 1, 333
+    u, dt, bm, cm, A = scan_inputs(torch, rng, dev, B_, S)
+    wide = torch.cat([u, dt, dt[..., :2]], dim=-1)    # (1, S, 2D + 2)
+    u_, dt_ = wide[..., 1:SCAN_D + 1], wide[..., SCAN_D + 1:2 * SCAN_D + 1]
+    y, h = scan_ops.mamba_scan(u_, dt_, bm, cm, A)
+    wy, wh = mamba_scan_ref(u_, dt_, bm, cm, A)
+    ey, ok_y = allclose_err(y, wy, SCAN_TOL)
+    eh, ok_h = allclose_err(h, wh, SCAN_TOL)
+    check(ok_y and ok_h, f"mamba_scan kernel != plain on misaligned u, dt "
+          f"views: y {ey}, h_last {eh} (tolerance {SCAN_TOL})")
+    cases.append({"B": B_, "S": S, "decay_span": False,
+                  "misaligned_u_dt": True, "y_max_abs_err": ey,
+                  "h_max_abs_err": eh})
     # the reference's carry test (tests/test_kernels.py:138-151): decay ~1
     # and constant input, so y grows linearly over the whole sequence
     B_, S, D, N = 1, 512, 32, 4
@@ -1027,6 +1183,7 @@ def scan_phase(torch, dev, rng):
 
     sizes = []
     for S in SCAN_TIMED_S:
+        clocks = [smi_clocks()]
         args = scan_inputs(torch, rng, dev, 1, S)
         call = lambda: scan_ops.mamba_scan(*args)                  # noqa
         ms, per_call = kernel_ms(torch, call, "mamba_scan", iters=20)
@@ -1036,7 +1193,9 @@ def scan_phase(torch, dev, rng):
                f"{SCAN_R + 2 * SCAN_N}); float32", "ms": ms,
                "profiler_launches_per_call": per_call,
                "bound_ms": b_ms, "bound_by": b_by,
-               "call_ms": time_cuda(torch, call, iters=20)}
+               "call_ms": time_cuda(torch, call, iters=20),
+               "clocks_sm_max_power": clocks + [smi_clocks()],
+               "launch": launch_resources(torch, call, "mamba_scan")}
         if S == SCAN_TIMED_S[-1]:
             plain = lambda: mamba_scan_ref(*args)                  # noqa
             row["plain_ms"], row["plain_kernels"], _ = device_ms(
@@ -1046,7 +1205,10 @@ def scan_phase(torch, dev, rng):
               f"a call; call {row['call_ms']:.4f}), bound {b_ms:.5f} ms "
               f"({b_by})" + (f", plain {row['plain_ms']:.3f} ms "
                              f"({row['plain_kernels']:.0f} kernels)"
-                             if "plain_ms" in row else ""))
+                             if "plain_ms" in row else "")
+              + f"; clocks.sm, max, power "
+              f"{' -> '.join(row['clocks_sm_max_power'])}; launch "
+              f"{row['launch']}")
     return {"cases": cases, "max_abs_err": err, "sizes": sizes}
 
 
@@ -1251,6 +1413,7 @@ def mamba_profile(torch, cfg, params, path):
 
     step()
     torch.cuda.synchronize()
+    clocks = [smi_clocks()]
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1258,6 +1421,7 @@ def mamba_profile(torch, cfg, params, path):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     d_ms, d_events, d_top = device_ms(torch, step, iters=3)
+    clocks.append(smi_clocks())
     prefill = {}
     for pr in path["prompts"]:
         tok = torch.from_numpy(pr[None]).to(eng.device)
@@ -1284,6 +1448,7 @@ def mamba_profile(torch, cfg, params, path):
     out = {"decode_wall_ms": float(np.median(walls)),
            "decode_wall_samples": walls, "decode_device_ms": d_ms,
            "decode_device_events": d_events, "decode_top": d_top,
+           "decode_clocks_sm_max_power": clocks,
            "prefill_device": prefill, "loop_steps": MAMBA_STEPS,
            "loop_wall_ms": loop_wall, "loop_device_ms": loop_dev,
            "loop_device_events": loop_events,
@@ -1295,7 +1460,8 @@ def mamba_profile(torch, cfg, params, path):
           f"{loop_wall:.1f} ms wall, {loop_dev:.1f} ms device (busy "
           f"{100 * out['loop_busy_share']:.1f} %); prefill at "
           f"{len(path['prompts'][-1])} tokens {last['device_ms']:.2f} ms "
-          f"device, the scan kernel {last['scan_ms']:.2f} ms")
+          f"device, the scan kernel {last['scan_ms']:.2f} ms; decode "
+          f"clocks.sm, max, power {' -> '.join(clocks)}")
     return out
 
 
@@ -1374,9 +1540,21 @@ def main() -> int:
     t0 = time.time()
     _build.load()
     print(f"[build] {_build.library_path().name} in {time.time() - t0:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"[build] {line.strip()}")
+    resources = kernel_resources(_build.build_log())
+    for r in resources:
+        print(f"[build] {r['kernel']}: {r['registers']} registers, "
+              f"{r['spill_bytes']} spill bytes, {r['static_smem']} bytes "
+              f"static shared memory")
+    # the redesigned kernels must not spill (the float32 flash kernel,
+    # unchanged since its first design, is reported above as it is); the
+    # build log must name both, or nothing was checked
+    redesigned = [r for r in resources if "flash_fwd_bf16_tc" in r["kernel"]
+                  or "mamba_scan_kernel" in r["kernel"]]
+    for name in ("flash_fwd_bf16_tc", "mamba_scan_kernel"):
+        check(any(name in r["kernel"] for r in redesigned),
+              f"the build log names no {name} instance: spills unchecked")
+    check(all(r["spill_bytes"] == 0 for r in redesigned),
+          f"register spills in {[r for r in redesigned if r['spill_bytes']]}")
 
     # ---- 3. kernels against their plain versions --------------------------
     rng = np.random.default_rng(SEED)
@@ -1839,7 +2017,9 @@ def main() -> int:
          "max_abs_err_all_cases": {
              dn: max(e for c, e in flash["errs"].items() if c[1] == dn)
              for dn in ("float32", "bfloat16")},
-         "launches_per_prefill": cfg.n_layers},
+         "launches_per_prefill": cfg.n_layers,
+         "resources": [r for r in resources if "flash_fwd" in r["kernel"]],
+         "launch": flash["sizes"][-1]["launch"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:52",
@@ -1851,7 +2031,9 @@ def main() -> int:
          "library": "none: no single PyTorch call computes a selective scan",
          "shape": scan["sizes"][-1]["shape"], "sizes": scan["sizes"],
          "cases": scan["cases"],
-         "launches_per_prefill": mcfg.n_layers},
+         "launches_per_prefill": mcfg.n_layers,
+         "resources": [r for r in resources if "mamba_scan" in r["kernel"]],
+         "launch": scan["sizes"][-1]["launch"]},
     ]
     for kd in kernels[:2]:
         kd["lm_path_launches"] = lm_line["lm_path"]["launches"][kd["name"]]

@@ -21,7 +21,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, KV, hd) -> (B, S, KV, G, hd) in q's dtype, with a causal and an
     optional sliding-window mask (``window`` = 0: none).  Any S; hd a
     multiple of 16 up to 256; float32 or bfloat16.  The tensors may be
-    strided views as long as their last axis is contiguous."""
+    strided views as long as their last axis is contiguous (in bfloat16
+    their rows must also start on 16-byte boundaries, or it raises).  On
+    the card bfloat16 runs on the tensor cores with the weights P rounded
+    to bfloat16 before the value product, as the model's own attention
+    rounds them; float32 runs in full float32."""
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, S, KV, G, hd) and k, v (B, S, KV, hd),"
                          f" got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -46,6 +50,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}, {k.device}, {v.device}")
     from repro_torch import _build
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_rows_aligned(name, t)
     out = torch.empty((B, S, KV, G, hd), dtype=q.dtype, device=q.device)
     err = _build.load().beehive_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -58,3 +65,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def _check_rows_aligned(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernel copies rows with 16-byte ``cp.async``: the base
+    pointer and the stride of every axis longer than 1 must be multiples
+    of 16 bytes (8 elements)."""
+    if t.data_ptr() % 16 or any(n > 1 and s % 8 for n, s in
+                                zip(t.shape[:-1], t.stride()[:-1])):
+        raise ValueError(f"flash_attention: bf16 {name} rows are not "
+                         f"16-byte aligned (data_ptr % 16 = "
+                         f"{t.data_ptr() % 16}, strides {t.stride()}): the "
+                         f"kernel copies rows in 16-byte pieces")

@@ -125,6 +125,25 @@ def test_ops_model_layout_vs_model_attention(S, window):
           JL._attn_online(jq, jk, jv, pos, pos, window, blk=128), "float32")
 
 
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("S", [129, 333])
+@pytest.mark.parametrize("H,KV,hd", [(16, 16, 64), (16, 8, 256)])
+def test_plain_vs_model_attention_with_bf16_weights(H, KV, hd, S, window):
+    """The card's bf16 kernel rounds P to bf16 before the value product,
+    as the model's own attention does (``w.astype(v.dtype)``).  At qwen's
+    widths (H=16, hd=64) and gemma3-12b's (hd=256), causal and windowed,
+    that attention stays within the bf16 tolerance of the plain version
+    (float32 weights), the bound the card's check holds the kernel to."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(
+        S + hd + window, [(1, S, KV, H // KV, hd), (1, S, KV, hd),
+                          (1, S, KV, hd)], "bfloat16")
+    pos = jnp.arange(S)
+    want = JL._attn_dense(jq, jk, jv, pos, pos, window)
+    assert want.dtype == jnp.bfloat16
+    close(attention_model_ref(tq, tk, tv, causal=True, window=window),
+          np.asarray(want.astype(jnp.float32)), "bfloat16")
+
+
 def test_ops_wrapper_cpu_counts_no_launch_and_validates():
     before = flash_ops.flash_attention.launches
     q = torch.zeros((1, 8, 1, 2, 16))
@@ -153,7 +172,16 @@ CARD_CASES = [  # (S, H, KV, hd, window, causal)
     (1000, 16, 16, 64, 0, True), (256, 4, 2, 64, 0, True),
     (512, 8, 2, 128, 0, True), (256, 4, 2, 64, 128, True),
     (512, 8, 4, 64, 64, True), (300, 4, 4, 64, 0, False),
-    (200, 4, 2, 16, 0, True), (130, 2, 1, 256, 32, True)]
+    (200, 4, 2, 16, 0, True), (130, 2, 1, 256, 32, True),
+    # the bf16 kernel's edges: ragged tails around its 64-row tiles, a
+    # window edge inside a key tile, G = 2, 4, 8, hubert-xlarge's hd 80
+    # bidirectional, hd 128, gemma3-12b's hd 256 with a window
+    (63, 16, 16, 64, 0, True), (64, 16, 16, 64, 0, True),
+    (65, 16, 16, 64, 0, True), (127, 16, 16, 64, 0, True),
+    (333, 16, 16, 64, 0, True), (333, 8, 4, 64, 100, True),
+    (333, 16, 4, 64, 0, True), (333, 16, 2, 64, 0, True),
+    (333, 16, 16, 80, 0, False), (333, 8, 2, 128, 0, True),
+    (700, 16, 8, 256, 512, True)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -182,3 +210,33 @@ def test_kernel_strided_model_layout_on_card(cuda):
     got = flash_ops.flash_attention(q, k, v, causal=True, window=100)
     want = attention_model_ref(q, k, v, causal=True, window=100)
     close(got.cpu(), want.cpu().numpy(), "float32")
+
+
+def test_bf16_row_alignment_is_checked():
+    """The bf16 kernel copies rows in 16-byte pieces: the wrapper names a
+    view whose rows it cannot take (a CPU tensor shows the check; on the
+    card the check runs before every bf16 launch)."""
+    wide = torch.zeros((1, 8, 2, 2, 80), dtype=torch.bfloat16)
+    flash_ops._check_rows_aligned("q", wide[..., :64])      # 160-byte rows
+    flash_ops._check_rows_aligned("q", wide[..., 16:])      # 32-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops._check_rows_aligned("q", wide[..., 4:68])  # 8-byte offset
+    odd = torch.zeros((1, 8, 2, 2, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops._check_rows_aligned("k", odd)              # 136-byte rows
+    flash_ops._check_rows_aligned("v", odd[:, :1, :1, :1])  # one row
+
+
+def test_kernel_strided_bf16_view_on_card(cuda):
+    """bf16 q, k, v as 16-byte aligned column views of wider tensors (the
+    kernel's cp.async path with strides that are not the row width)."""
+    B, S, KV, G, hd = 1, 333, 4, 2, 64
+    rng = np.random.default_rng(1)
+    wide = torch.from_numpy(rng.standard_normal(
+        (B, S, KV, G, 2 * hd)).astype(np.float32)).to(cuda).bfloat16()
+    kv = torch.from_numpy(rng.standard_normal(
+        (B, S, 2, KV, hd)).astype(np.float32)).to(cuda).bfloat16()
+    q, k, v = wide[..., hd:], kv[:, :, 0], kv[:, :, 1]
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    want = attention_model_ref(q, k, v, causal=True, window=100)
+    close(got.float().cpu(), want.float().cpu().numpy(), "bfloat16")

@@ -61,6 +61,19 @@ def scan_inputs(seed, B, S, D, N):
     return u, dt, bm, cm, A
 
 
+def span_inputs(seed, B, S, D, N):
+    """Inputs whose decays exp(dt A) span ~1e-8 to ~1: A = -(1..N) on
+    every channel (the model's init) and dt log-uniform in [1e-6, 1.15],
+    so that one carry vanishes within a step and another survives the
+    whole sequence."""
+    u, _, bm, cm, _ = scan_inputs(seed, B, S, D, N)
+    rng = np.random.default_rng(seed + 7)
+    dt = np.exp(rng.uniform(np.log(1e-6), np.log(1.15), (B, S, D))
+                ).astype(np.float32)
+    A = -np.tile(np.arange(1, N + 1, dtype=np.float32), (D, 1))
+    return u, dt, bm, cm, A
+
+
 def torch_of(arrays):
     return [torch.from_numpy(a) for a in arrays]
 
@@ -88,6 +101,24 @@ def test_plain_scan_against_reference(S, D, N, against):
     assert y.shape == (2, S, D) and h.shape == (2, D, N)
     assert y.dtype == h.dtype == torch.float32
     close(y.numpy(), want)
+
+
+@pytest.mark.parametrize("span", [False, True])
+@pytest.mark.parametrize("S", [63, 64, 65, 129])
+def test_plain_scan_at_chunk_edges(S, span):
+    """The card kernel scans 64-step chunks: one step short of a chunk, a
+    chunk, one past it and two chunks and one, at D=64 and B=2, with the
+    reference's inputs and with decays spanning 1e-8..1, against the
+    reference's oracle."""
+    make = span_inputs if span else scan_inputs
+    arrays = make(S + 3, 2, S, 64, 16)
+    if span:
+        decay = np.exp(arrays[1][..., None] * arrays[4])
+        assert decay.min() < 1e-7 and decay.max() > 0.999
+    want_y = j_scan_ref(*[jnp.asarray(a) for a in arrays])
+    y, h = mamba_scan_ref(*torch_of(arrays))
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    close(y.numpy(), want_y)
 
 
 def test_plain_scan_ragged_length():
@@ -449,14 +480,23 @@ def test_two_token_prompt_is_refused_as_by_the_reference(pair):
 # on the card
 
 
-@pytest.mark.parametrize("S", [1, 3, 129, 300])
-def test_mamba_kernel_on_card(cuda, S):
+CARD_CASES = [  # (B, S, D, decays spanning 1e-8..1)
+    (2, 1, 96, False), (2, 3, 96, False), (2, 129, 96, False),
+    (2, 300, 96, False),
+    # the kernel's 64-step chunks: one short, one, one past, two and one;
+    # D = 98 leaves a block's last warp with 2 of its 4 channels
+    (1, 63, 98, False), (1, 64, 98, False), (1, 65, 98, False),
+    (2, 129, 98, False), (2, 129, 96, True), (1, 2000, 98, True)]
+
+
+@pytest.mark.parametrize("B,S,D,span", CARD_CASES)
+def test_mamba_kernel_on_card(cuda, B, S, D, span):
     """The CUDA kernel against its plain version on the card, with B and C
     as strided column views, within 1e-4."""
-    R, N, D = 16, 16, 96
-    u, dt, _, _, A = scan_inputs(S, 2, S, D, N)
+    R, N = 16, 16
+    u, dt, _, _, A = (span_inputs if span else scan_inputs)(S, B, S, D, N)
     dbc = torch.from_numpy(np.random.default_rng(S + 1).standard_normal(
-        (2, S, R + 2 * N)).astype(np.float32)).to(cuda)
+        (B, S, R + 2 * N)).astype(np.float32)).to(cuda)
     _, bm, cm = dbc.split([R, N, N], dim=-1)
     tu, tdt, tA = (t.to(cuda) for t in torch_of((u, dt, A)))
     before = scan_ops.mamba_scan.launches

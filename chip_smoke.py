@@ -8,22 +8,28 @@ Phases, each of which fails the run when it fails:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``) and
      print each kernel instance's registers, static shared memory and
-     spills from the build log (none allowed in the bf16 flash and the
-     scan kernels, whose instances the log must name); the timed launches
-     of those two add their registers and shared memory (static and
-     dynamic) as the profiler's trace records them;
+     spills from the build log (none allowed in the checksum, RS, bf16
+     flash and scan kernels, whose instances the log must name); the timed
+     launches add their registers and shared memory (static and dynamic)
+     as the profiler's trace records them;
   3. hold each kernel against its plain PyTorch version on the card —
      checksum and RS bit for bit (checksum: B=512, L=4160 and odd widths,
      lengths 0, odd, L and > L, with and without the pseudo-header term,
-     aligned and not; RS: the (k, p) sweep of the reference's kernel tests
-     and 512 requests of 4 KiB), flash attention within 2e-5 (float32) /
+     aligned and not; rows 1 and 513, lengths one short of, at and one
+     past each boundary of the kernel's loads, a warp's load rounds and
+     its passes, prefixes ending inside a 16-byte load; RS: the (k, p) sweep
+     of the reference's kernel tests, 512 requests of 4 KiB, B = 1, 3 and
+     513, a view 4 bytes off 16-byte alignment, shards of 500 and 400
+     bytes), flash attention within 2e-5 (float32) /
      2e-2 (bf16) with TF32 off (qwen1.5-0.5b's prefill shapes, the
      reference's sweep, causal=False, the bf16 kernel's edges: S = 63..65,
      127, 333, a window edge inside a key tile, G = 2, 4, 8, hd 80
      bidirectional, hd 128, gemma3-12b's hd 256 with its window; strided
      views in float32 and bf16) — and time each at the main paths'
      shapes, flash beside ``scaled_dot_product_attention`` as a
-     yardstick, with the card's clock and power sampled beside each time;
+     yardstick, the checksum and RS kernels beside one PyTorch launch on a
+     one-element tensor (the launch floor), with the card's clock and
+     power sampled beside each time;
   4. the RS path: an ``rs_serve`` RPC stack (eth -> ip -> udp/rpc ->
      RS(8,2) -> udp -> ip -> eth) on B=512 frames of L=4160: one
      ``rx_tx``, then ``run_stream`` over N=32 batches under
@@ -96,6 +102,10 @@ N_CPU = 2        # batches held against the CPU run
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet)
 SEED = 0
+# the packet kernels' designs (csrc/checksum.cu, csrc/rs_encode.cu)
+CSUM_LOADS = 9                      # 16-byte loads a lane a pass: a warp a row
+CSUM_BOUNDS = (16, 16 * 32, 16 * 32 * CSUM_LOADS,
+               2 * 16 * 32 * CSUM_LOADS)   # a load, a warp's round, a pass, two
 
 # the LM serving path: qwen1.5-0.5b at full width (bf16 compute)
 LM_ARCH = "qwen1.5-0.5b"
@@ -423,6 +433,71 @@ def launch_resources(torch, fn, name):
                         "shared_memory_bytes": args.get("shared memory"),
                         "grid": args.get("grid"), "block": args.get("block")}
     return None
+
+
+# ---------------------------------------------------------------------------
+# the packet kernels: the edges of their designs
+
+
+def packet_edge_checks(torch, dev, csum_ops, checksum16_ref, rs_ops,
+                       rs_encode_blocks_ref, rs_encode_np, gf):
+    """The checksum and RS kernels bit for bit against their plain versions
+    (and RS against rs_encode_np) at the edges of their designs.  Its own
+    seed, so the later phases draw what they drew before.  Returns the
+    number of cases."""
+    rng = np.random.default_rng(SEED + 1)
+    n_cases = 0
+    width = CSUM_BOUNDS[-1] + 100                 # three passes a row
+    # boundaries counted from the first 16-byte aligned byte: 0 to 15
+    # bytes (the head) after `start`; these views and starts give heads of
+    # 0, 2, 15 (aligned rows) and 12, 13, 15 (rows 3 bytes off)
+    edge = sorted({b + d + h for b in CSUM_BOUNDS for d in (-1, 0, 1)
+                   for h in (0, 2, 12, 13, 15)}
+                  | {16 * m + r for m in (1, 257) for r in range(1, 16)})
+    for rows, w, one in ((1, L, 4116), (513, L, None), (513, width, None),
+                         (1, width, CSUM_BOUNDS[-2] + 1)):
+        stride = (w + 3 + 15) // 16 * 16            # 16-byte aligned rows
+        data = torch.from_numpy(
+            rng.integers(0, 256, (rows, stride), dtype=np.uint8)).to(dev)
+        lens = np.resize(np.asarray(edge, np.int32), rows)
+        if one is not None:                         # udp_rx's prefix; a pass + 1
+            lens[0] = one
+        lens = torch.from_numpy(lens).to(dev)
+        pseudo = torch.from_numpy(
+            rng.integers(0, 1 << 20, rows).astype(np.int64)).to(dev)
+        for view in (data[:, :w], data[:, 3:3 + w]):   # aligned rows and not
+            for start in (0, 1, 14):
+                for ps in (None, pseudo):
+                    got = csum_ops.checksum16(view, start, lens, ps)
+                    want = checksum16_ref(view, start, lens, ps)
+                    check(torch.equal(got, want),
+                          f"checksum kernel != plain at rows {rows} width "
+                          f"{view.shape[1]} start {start} pseudo "
+                          f"{ps is not None} (edge lengths)")
+                    n_cases += 1
+    body = torch.from_numpy(
+        rng.integers(0, 256, (513, L), dtype=np.uint8)).to(dev)
+    rs_cases = (  # (what, view, k, p)
+        ("B=1", body[:1, :4096], 8, 2), ("B=3", body[:3, :4096], 8, 2),
+        ("B=513", body[:, :4096], 8, 2),
+        ("4 bytes off 16-byte alignment", body[:, 4:4100], 8, 2),
+        ("4 bytes off, B=3", body[:3, 4:4100], 8, 2),
+        ("S=500, B=3", body[:3, :4000], 8, 2),
+        ("RS(10, 4), S=400, B=3", body[:3, :4000], 10, 4),
+        ("RS(10, 4), 4 bytes off, B=3", body[:3, 4:4004], 10, 4),
+        ("RS(6, 3), B=1", body[:1, :3072], 6, 3))
+    for what, view, k, p in rs_cases:
+        got = rs_ops.encode_blocks(view, k, p)
+        want = rs_encode_blocks_ref(view, rs_ops.mats(k, p)[1])
+        check(torch.equal(got, want), f"RS kernel != plain: {what}")
+        rows, S = view.shape[0], view.shape[1] // k
+        shards = view.cpu().numpy().reshape(rows, k, S).transpose(1, 0, 2)
+        want = rs_encode_np(shards.reshape(k, -1), gf.generator_matrix(k, p))
+        want = want.reshape(p, rows, S).transpose(1, 0, 2).reshape(rows, -1)
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"RS kernel != rs_encode_np: {what}")
+        n_cases += 1
+    return n_cases
 
 
 # ---------------------------------------------------------------------------
@@ -1547,10 +1622,12 @@ def main() -> int:
               f"static shared memory")
     # the redesigned kernels must not spill (the float32 flash kernel,
     # unchanged since its first design, is reported above as it is); the
-    # build log must name both, or nothing was checked
-    redesigned = [r for r in resources if "flash_fwd_bf16_tc" in r["kernel"]
-                  or "mamba_scan_kernel" in r["kernel"]]
-    for name in ("flash_fwd_bf16_tc", "mamba_scan_kernel"):
+    # build log must name each, or nothing was checked
+    redesigned_names = ("checksum16_kernel", "rs_encode_kernel",
+                        "flash_fwd_bf16_tc", "mamba_scan_kernel")
+    redesigned = [r for r in resources
+                  if any(n in r["kernel"] for n in redesigned_names)]
+    for name in redesigned_names:
         check(any(name in r["kernel"] for r in redesigned),
               f"the build log names no {name} instance: spills unchecked")
     check(all(r["spill_bytes"] == 0 for r in redesigned),
@@ -1606,6 +1683,11 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[kernels] rs_encode: {n_cases + 1} cases bit-identical to the "
           f"plain version and to rs_encode_np")
+    n_edges = packet_edge_checks(torch, dev, csum_ops, checksum16_ref, rs_ops,
+                                 rs_encode_blocks_ref, rs_encode_np, gf)
+    torch.cuda.synchronize()
+    print(f"[kernels] checksum and rs_encode: {n_edges} cases at the edges of "
+          f"their designs bit-identical to the plain versions")
 
     flash = flash_phase(torch, dev, rng)
 
@@ -1635,6 +1717,11 @@ def main() -> int:
     # kernel time: device time of the kernel alone (profiler); call time:
     # CUDA events around back-to-back wrapper calls, which includes the
     # host's launch cost when that is longer than the kernel
+    # the launch floor: one PyTorch launch on a one-element tensor, timed
+    # the same way as the kernels
+    one = torch.zeros(1, device=dev)
+    floor_ms = kernel_ms(torch, lambda: one.add_(1), "elementwise",
+                         iters=200)[0]
     csum_sites = []
     for site, (cp, cs, cl, cps) in zip(("ip_rx", "udp_rx", "udp_tx",
                                         "ip_tx"), csum_calls):
@@ -1655,8 +1742,11 @@ def main() -> int:
             "plain_ms": p_ms, "plain_kernels": p_kernels,
             "call_ms": time_cuda(torch, call, iters=200),
             "plain_call_ms": time_cuda(torch, plain, iters=20),
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "over_launch_floor": ms / floor_ms})
     udp_rx_site = csum_sites[1]
+    csum_launch = launch_resources(torch, lambda: csum_ops.checksum16(
+        *csum_calls[1]), "checksum16")
 
     rs_call = lambda: rs_ops.encode_blocks(blocks_view, 8, 2)       # noqa
     rs_plain = lambda: rs_encode_blocks_ref(                        # noqa
@@ -1668,14 +1758,22 @@ def main() -> int:
     r_bytes = B * 4096 + B * 1024
     br, br_by = bound_ms(r_bytes, 2 * B * 512 * 8 * 2)   # GF mul + xor
     err_r = (rs_call().int() - rs_plain().int()).abs().max().item()
+    rs_launch = launch_resources(torch, rs_call, "rs_encode")
+    packet_clocks = smi_clocks()
+    print(f"[kernels] launch floor (one add_ on a one-element tensor): "
+          f"{floor_ms:.5f} ms; clocks.sm, clocks.max.sm, power.draw: "
+          f"{packet_clocks}")
     for s in csum_sites:
         print(f"[kernels] checksum {s['site']} {s['shape']}: kernel "
-              f"{s['ms']:.5f} ms, call {s['call_ms']:.5f} ms, plain "
+              f"{s['ms']:.5f} ms ({s['over_launch_floor']:.2f}x the launch "
+              f"floor), call {s['call_ms']:.5f} ms, plain "
               f"{s['plain_ms']:.5f} ms ({s['plain_kernels']:.0f} kernels; "
               f"call {s['plain_call_ms']:.5f}), bound {s['bound_ms']:.5f} ms")
-    print(f"[kernels] rs_encode: kernel {ms_r:.5f} ms, call {call_r:.5f} ms, "
-          f"plain {plain_r:.5f} ms ({plain_r_kernels:.0f} kernels; call "
-          f"{call_plain_r:.5f}), bound {br:.5f} ms")
+    print(f"[kernels] rs_encode: kernel {ms_r:.5f} ms ({ms_r / floor_ms:.2f}x "
+          f"the launch floor), call {call_r:.5f} ms, plain {plain_r:.5f} ms "
+          f"({plain_r_kernels:.0f} kernels; call {call_plain_r:.5f}), bound "
+          f"{br:.5f} ms")
+    print(f"[kernels] timed launches: {csum_launch}; {rs_launch}")
 
     # ---- 4. the main path ---------------------------------------------------
     topo = rpc_serve_topology([("rs", "rs_serve", rpc.MSG_RS_ENCODE)])
@@ -1992,7 +2090,10 @@ def main() -> int:
          "ms_per_batch": sum(s["ms"] for s in csum_sites),
          "plain_ms_per_batch": sum(s["plain_ms"] for s in csum_sites),
          "bound_ms_per_batch": sum(s["bound_ms"] for s in csum_sites),
-         "launches_per_batch": launches["checksum16"] // batches_run},
+         "launches_per_batch": launches["checksum16"] // batches_run,
+         "launch_floor_ms": floor_ms, "clocks": packet_clocks,
+         "resources": [r for r in resources if "checksum16" in r["kernel"]],
+         "launch": csum_launch},
         {"name": "rs_encode", "route": "cuda",
          "source": "src/repro_torch/csrc/rs_encode.cu",
          "replaces": "src/repro/kernels/rs_encode/kernel.py:38",
@@ -2002,7 +2103,10 @@ def main() -> int:
          "plain_ms": plain_r, "bound_ms": br, "bound_by": br_by,
          "library_ms": None, "call_ms": call_r, "plain_call_ms": call_plain_r,
          "shape": f"rs_serve: ({B}, 4096) of ({B}, {L}) -> ({B}, 1024)",
-         "launches_per_batch": launches["rs_encode"] // batches_run},
+         "launches_per_batch": launches["rs_encode"] // batches_run,
+         "launch_floor_ms": floor_ms, "over_launch_floor": ms_r / floor_ms,
+         "resources": [r for r in resources if "rs_encode" in r["kernel"]],
+         "launch": rs_launch},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:68",

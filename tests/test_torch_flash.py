@@ -184,6 +184,7 @@ CARD_CASES = [  # (S, H, KV, hd, window, causal)
     (700, 16, 8, 256, 512, True)]
 
 
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,KV,hd,window,causal", CARD_CASES)
 def test_kernel_vs_plain_on_card(cuda, S, H, KV, hd, window, causal, dtype):
@@ -199,6 +200,7 @@ def test_kernel_vs_plain_on_card(cuda, S, H, KV, hd, window, causal, dtype):
     close(got.cpu(), want.float().cpu().numpy(), dtype)
 
 
+@pytest.mark.gpu
 def test_kernel_strided_model_layout_on_card(cuda):
     B, S, KV, G, hd = 1, 333, 4, 2, 64
     rng = np.random.default_rng(0)
@@ -227,6 +229,7 @@ def test_bf16_row_alignment_is_checked():
     flash_ops._check_rows_aligned("v", odd[:, :1, :1, :1])  # one row
 
 
+@pytest.mark.gpu
 def test_kernel_strided_bf16_view_on_card(cuda):
     """bf16 q, k, v as 16-byte aligned column views of wider tensors (the
     kernel's cp.async path with strides that are not the row width)."""

@@ -489,6 +489,7 @@ CARD_CASES = [  # (B, S, D, decays spanning 1e-8..1)
     (2, 129, 98, False), (2, 129, 96, True), (1, 2000, 98, True)]
 
 
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,S,D,span", CARD_CASES)
 def test_mamba_kernel_on_card(cuda, B, S, D, span):
     """The CUDA kernel against its plain version on the card, with B and C
